@@ -1,0 +1,151 @@
+"""The SCAN detector's eval forward (counterpart of ``scan_tpu/modeling/detector.py``).
+
+``scan_tpu`` keeps parameters in a dict of pytrees applied by a stateless
+``SCANDetector``; here the detector is an ``nn.Module`` that owns its
+submodules (``backbone``, ``middle_head``, ``fcos``, the names of
+``scan_tpu``'s parameter dict) and the prototype state as buffers.
+
+This slice ports the inference parts: construction, ``_prep_images`` and
+``forward_inference`` for the FCOS head with condgraph in all three
+TEST.MODEs. Discriminators, ATSS, int8 and training come later.
+"""
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..ops.locations import compute_locations
+from .backbone.build import build_backbone
+from .condgraph.module import CondGraph, CondGraphConfig
+from .condgraph.prototype import ProtoState, init_proto_state
+from .fcos.head import FCOSHead
+from .fcos.module import mix_cls_maps
+from .fcos.postprocess import PostProcessConfig, fcos_postprocess
+from .layers import init_parameters
+
+class SCANDetector(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        if cfg.MODEL.ATSS_ON:
+            raise NotImplementedError("ATSS is not ported to scan_tpu_torch yet")
+        if cfg.TPU.get("INT8_INFERENCE", False):
+            raise NotImplementedError("int8 inference is not ported yet")
+        self.cfg = cfg
+        self.compute_dtype = (
+            torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16"
+            else torch.float32
+        )
+        self.strides = tuple(cfg.MODEL.FCOS.FPN_STRIDES)
+        self.num_classes = cfg.MODEL.FCOS.NUM_CLASSES
+        self.backbone = build_backbone(cfg)
+        self.condgraph_on = cfg.MODEL.MIDDLE_HEAD.CONDGRAPH_ON
+        if self.condgraph_on:
+            self.cg_cfg = CondGraphConfig.from_cfg(cfg)
+            self.middle_head = CondGraph(self.cg_cfg)
+            shape = (self.cg_cfg.used_classes, self.cg_cfg.proto_channel)
+            if self.cg_cfg.proto_iter > 1:
+                shape += (self.cg_cfg.proto_iter,)
+            self.register_buffer("prototype", torch.zeros(shape))
+            self.register_buffer("proto_counter",
+                                 torch.tensor(-1, dtype=torch.int32))
+        self.fcos = FCOSHead(
+            num_classes=self.num_classes,
+            num_convs_cls=cfg.MODEL.FCOS.NUM_CONVS_CLS,
+            num_convs_reg=cfg.MODEL.FCOS.NUM_CONVS_REG,
+            prior_prob=cfg.MODEL.FCOS.PRIOR_PROB,
+            with_reg_ctr=cfg.MODEL.FCOS.REG_CTR_ON,
+            num_levels=len(self.strides),
+        )
+        self.test_mode = cfg.TEST.MODE
+        self.pp_cfg = PostProcessConfig(
+            pre_nms_thresh=cfg.MODEL.FCOS.INFERENCE_TH,
+            pre_nms_top_n=cfg.MODEL.FCOS.PRE_NMS_TOP_N,
+            nms_thresh=cfg.MODEL.FCOS.NMS_TH,
+            fpn_post_nms_top_n=cfg.TEST.DETECTIONS_PER_IMG,
+            num_classes=self.num_classes,
+            nms_cap=cfg.TPU.get("NMS_CAP", 512),
+        )
+        self.pixel_mean = tuple(cfg.INPUT.PIXEL_MEAN)
+        self.pixel_std = tuple(cfg.INPUT.PIXEL_STD)
+        self.to_bgr255 = cfg.INPUT.TO_BGR255
+
+    # ------------------------------------------------------------------ #
+    @torch.no_grad()
+    def init_parameters(self, seed: int = 0):
+        """Seeded init with ``scan_tpu``'s conventions (see
+        ``modeling/layers.py``), drawn on the CPU so a seed gives the same
+        weights on every device; prototypes are standard normal."""
+        gen = torch.Generator().manual_seed(seed)
+        for name in ("backbone", "middle_head", "fcos"):
+            if hasattr(self, name):
+                init_parameters(getattr(self, name), gen)
+        if self.condgraph_on:
+            state = init_proto_state(gen, self.cg_cfg.used_classes,
+                                     self.cg_cfg.proto_channel,
+                                     self.cg_cfg.proto_iter)
+            self.load_proto_state(state)
+        return self
+
+    @torch.no_grad()
+    def load_proto_state(self, state: ProtoState):
+        self.prototype.copy_(state.prototype)
+        self.proto_counter.copy_(state.counter)
+
+    def proto_state(self) -> ProtoState:
+        return ProtoState(self.prototype, self.proto_counter)
+
+    def set_compute_dtype(self):
+        """Convolutions and GroupNorms run in TPU.COMPUTE_DTYPE, as flax's
+        ``dtype=`` does; dense layers, Scales and prototypes stay float32."""
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.GroupNorm)):
+                m.to(self.compute_dtype)
+                if m.weight.dim() == 4:
+                    m.to(memory_format=torch.channels_last)
+        return self
+
+    # ------------------------------------------------------------------ #
+    def _prep_images(self, images):
+        """uint8 RGB NHWC -> (BGR*255 - mean) / std in float32; float inputs
+        are taken as already normalised (``detector.py:181-194``)."""
+        if images.dtype != torch.uint8:
+            return images
+        x = images.to(torch.float32)
+        if self.to_bgr255:
+            x = x.flip(-1)
+        else:
+            x = x / 255.0
+        mean = torch.tensor(self.pixel_mean, dtype=torch.float32, device=x.device)
+        std = torch.tensor(self.pixel_std, dtype=torch.float32, device=x.device)
+        return ((x - mean) / std).contiguous()
+
+    @torch.no_grad()
+    def forward_inference(self, images, image_sizes):
+        """Eval path (reference trainer.py foward_detector eval branch +
+        fcos.py TEST.MODE mixing). images (B, H, W, 3) uint8 or normalised
+        float, image_sizes (B, 2) int [h, w]. Returns a dict of
+        (B, DETECTIONS_PER_IMG) tensors: boxes, scores, labels, valid."""
+        images = self._prep_images(images)
+        feats = list(self.backbone(images))
+        act_maps = None
+        if self.condgraph_on:
+            feats, _, act_maps, _ = self.middle_head(
+                feats, self.proto_state(), "inference")
+        shapes = [(f.shape[1], f.shape[2]) for f in feats]
+        compute_cls = self.test_mode != "light"
+        logits, reg, ctr = self.fcos(feats, compute_cls)
+        cls_maps, apply_sigmoid = mix_cls_maps(self.test_mode, logits, act_maps)
+        pp = dataclasses.replace(self.pp_cfg, apply_sigmoid=apply_sigmoid)
+        locations = compute_locations(shapes, self.strides, device=images.device)
+        return fcos_postprocess(pp, locations, cls_maps, reg, ctr,
+                                image_sizes.to(images.device))
+
+
+def build_detector(cfg, device=None, seed: int = 0) -> SCANDetector:
+    """Build the detector with seeded weights on ``device`` (the card unless
+    the caller asks for another; raises when there is no card)."""
+    dev = resolve_device(device)
+    det = SCANDetector(cfg).init_parameters(seed)
+    return det.to(dev).set_compute_dtype().eval()

@@ -1,0 +1,100 @@
+"""Greedy (ML-)NMS over score-sorted boxes: kernel K1 and its plain version.
+
+Counterpart of ``scan_tpu/ops/pallas/nms_kernel.py::nms_pallas_sorted``.
+``nms_sorted`` launches ``csrc/nms.cu`` for CUDA tensors and runs
+``nms_sorted_plain`` for CPU tensors; it never falls back from one to the
+other. The source note in ``csrc/nms.cu`` says what bounds the kernel and
+how its bitmask design answers it.
+"""
+
+import ctypes
+
+import torch
+
+from ...structures.boxes import box_iou
+from . import build
+
+MAX_K = 2048  # the scan's "removed" bitset is one warp of 64-bit words
+
+
+def nms_sorted_plain(boxes, valid, labels, iou_threshold: float,
+                     plus_one: bool = True):
+    """Plain PyTorch greedy NMS: the suppression matrix, then a for loop over
+    the rows in score order (``scan_tpu/ops/nms.py:64-73``), batched over
+    the leading dimension.
+
+    boxes (B, K, 4) f32, valid (B, K) bool, labels (B, K) int or None.
+    Returns keep (B, K) bool in the sorted order.
+    """
+    k = boxes.shape[-2]
+    thr = torch.tensor(iou_threshold, dtype=torch.float32)
+    sup = box_iou(boxes, boxes, plus_one=plus_one) > thr
+    if labels is not None:
+        sup = sup & (labels[..., :, None] == labels[..., None, :])
+    later = torch.ones((k, k), dtype=torch.bool, device=boxes.device).triu(1)
+    sup = sup & later
+    suppressed = torch.zeros_like(valid)
+    for i in range(k):
+        keep_i = valid[:, i] & ~suppressed[:, i]
+        suppressed = suppressed | (keep_i[:, None] & sup[:, i])
+    return valid & ~suppressed
+
+
+def _lib():
+    lib = build.load("nms")
+    fn = lib.scan_nms_sorted
+    if fn.argtypes is None:
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def nms_sorted(boxes, valid, labels, iou_threshold: float,
+               plus_one: bool = True):
+    """Greedy NMS over boxes already sorted by descending score.
+
+    boxes (B, K, 4) f32; valid (B, K) bool; labels (B, K) int or None.
+    Returns keep (B, K) bool in the sorted order. CPU tensors take the plain
+    version; CUDA tensors launch kernel K1 or raise.
+    """
+    if boxes.device.type == "cpu":
+        return nms_sorted_plain(boxes, valid, labels, iou_threshold, plus_one)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"nms_sorted: unsupported device {boxes.device}")
+    if boxes.dim() != 3 or boxes.shape[-1] != 4 or boxes.dtype != torch.float32:
+        raise ValueError(f"nms_sorted: boxes must be (B, K, 4) float32, got "
+                         f"{tuple(boxes.shape)} {boxes.dtype}")
+    b, k = boxes.shape[:2]
+    if valid.shape != (b, k) or valid.dtype != torch.bool:
+        raise ValueError("nms_sorted: valid must be (B, K) bool")
+    if k > MAX_K:
+        raise ValueError(f"nms_sorted: K={k} exceeds {MAX_K}")
+    boxes = boxes.contiguous()
+    valid = valid.contiguous()
+    if labels is not None:
+        if labels.shape != (b, k):
+            raise ValueError("nms_sorted: labels must be (B, K)")
+        labels = labels.to(torch.int32).contiguous()
+    words = (k + 63) // 64
+    mask = torch.empty((b, k, words), dtype=torch.int64, device=boxes.device)
+    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
+    if b == 0 or k == 0:
+        return keep
+    with torch.cuda.device(boxes.device):
+        err = _lib()(
+            boxes.data_ptr(), valid.data_ptr(),
+            labels.data_ptr() if labels is not None else None,
+            b, k, float(iou_threshold), int(plus_one), mask.data_ptr(),
+            keep.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"nms kernel launch failed: CUDA error {err}")
+    nms_sorted.launches += 1
+    return keep
+
+
+nms_sorted.launches = 0

@@ -1,0 +1,96 @@
+"""Fused VGG16 stage 1 (conv1_1, ReLU, conv1_2, ReLU, 2x2 max-pool):
+kernel K2 and its plain version.
+
+Counterpart of ``scan_tpu/ops/pallas/stem_kernel.py::fused_s2d_stem`` (and
+its oracle ``reference_stem``). ``fused_stem`` launches ``csrc/stem.cu`` for
+CUDA tensors and runs ``reference_stem`` for CPU tensors; it never falls
+back from one to the other. The source note in ``csrc/stem.cu`` says what
+bounds the kernel and what its design does about it.
+
+Layout: x and the output are NHWC, as in ``scan_tpu``; the weights are
+PyTorch's (O, I, kh, kw).
+"""
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+
+STEM_IN = 3
+STEM_CH = 64
+
+
+def reference_stem(x, w0, b0, w1, b1, out_dtype=torch.float32):
+    """Plain PyTorch stage 1: conv2d -> relu -> conv2d -> relu -> max_pool2d.
+
+    x (B, H, W, 3) NHWC float; returns (B, H/2, W/2, C) NHWC in out_dtype.
+    In bfloat16 every operand is cast first, as ``scan_tpu``'s bf16 stem
+    does (``reference_stem(dtype=bfloat16)``).
+    """
+    dt = out_dtype
+    xc = x.permute(0, 3, 1, 2).to(dt)
+    y = F.relu(F.conv2d(xc, w0.to(dt), b0.to(dt), padding=1))
+    z = F.relu(F.conv2d(y, w1.to(dt), b1.to(dt), padding=1))
+    return F.max_pool2d(z, 2, 2).permute(0, 2, 3, 1)
+
+
+def _lib():
+    fn = build.load("stem").scan_stem
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_stem(x, w0, b0, w1, b1, out_dtype=torch.float32):
+    """relu(maxpool2x2(conv3x3(relu(conv3x3(x, w0) + b0), w1) + b1)).
+
+    x (B, H, W, 3) NHWC; w0 (64, 3, 3, 3), w1 (64, 64, 3, 3); returns
+    (B, H // 2, W // 2, 64) NHWC in out_dtype (float32 or bfloat16). CPU
+    tensors take the plain version; CUDA tensors launch kernel K2 or raise.
+    """
+    if x.device.type == "cpu":
+        return reference_stem(x, w0, b0, w1, b1, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_stem: unsupported device {x.device}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_stem: unsupported out_dtype {out_dtype}")
+    if x.dim() != 4 or x.shape[-1] != STEM_IN:
+        raise ValueError(f"fused_stem: x must be (B, H, W, 3), got "
+                         f"{tuple(x.shape)}")
+    if (tuple(w0.shape) != (STEM_CH, STEM_IN, 3, 3)
+            or tuple(w1.shape) != (STEM_CH, STEM_CH, 3, 3)):
+        raise ValueError(
+            f"fused_stem: the kernel takes the full-width VGG16 stem "
+            f"(w0 (64,3,3,3), w1 (64,64,3,3)); got {tuple(w0.shape)}, "
+            f"{tuple(w1.shape)}"
+        )
+    b, h, w, _ = x.shape
+    x = x.to(torch.float32).contiguous()
+    # kernel layouts: w0 [ky][kx][ci][co], w1 [ci][ky][kx][co]
+    w0k = w0.to(torch.float32).permute(2, 3, 1, 0).contiguous()
+    w1k = w1.to(torch.float32).permute(1, 2, 3, 0).contiguous()
+    b0k = b0.to(torch.float32).contiguous()
+    b1k = b1.to(torch.float32).contiguous()
+    out = torch.empty((b, h // 2, w // 2, STEM_CH), dtype=out_dtype,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):
+        err = _lib()(
+            x.data_ptr(), w0k.data_ptr(), b0k.data_ptr(), w1k.data_ptr(),
+            b1k.data_ptr(), out.data_ptr(), b, h, w,
+            int(out_dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"stem kernel launch failed: CUDA error {err}")
+    fused_stem.launches += 1
+    return out
+
+
+fused_stem.launches = 0

@@ -11,8 +11,10 @@ setup(
         "TPU-native cross-domain object detection with Semantic Conditioned "
         "Adaptation (JAX/XLA/Pallas rebuild of CityU-AIM-Group/SCAN)"
     ),
-    packages=find_packages(include=["scan_tpu", "scan_tpu.*"]),
-    package_data={"scan_tpu.native": ["*.cpp"]},
+    packages=find_packages(include=["scan_tpu", "scan_tpu.*",
+                                    "scan_tpu_torch", "scan_tpu_torch.*"]),
+    package_data={"scan_tpu.native": ["*.cpp"],
+                  "scan_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy",
                       "pyyaml", "pillow"],

@@ -6,8 +6,8 @@
 Phases, in order; any failure makes the script exit non-zero without the
 final ``{"ok": true, ...}`` line:
 
-  1. the card's name and power limit (nvidia-smi); build both kernels from
-     ``scan_tpu_torch/csrc/*.cu`` (one nvcc each, in parallel);
+  1. the card's name and power limit (nvidia-smi); build every kernel from
+     ``scan_tpu_torch/csrc/*.cu`` (one nvcc each, all started together);
   2. TF32 off for cuDNN and matmul;
   3. K1 (NMS) against its plain version: sorted synthetic sets, K = 512 and
      1000, B = 4, with and without labels, invalid rows mixed in; keep
@@ -19,16 +19,32 @@ final ``{"ok": true, ...}`` line:
   5. small-input agreement: the port on the card against the port's plain
      path on the CPU (which tests/test_torch_*.py hold against scan_tpu),
      128x192, float32, all three TEST.MODEs;
-  6. the main path: ``build_detector`` on the C2F config (full VGG16,
+  6. the fp main path: ``build_detector`` on the C2F config (full VGG16,
      256-channel FPN and heads) at 800x1344, batch 4, seeded weights and a
      seeded uint8 batch, TEST.MODE common/precision/light in float32 and
-     bfloat16. Both launch counters are zeroed before and read after; the
+     bfloat16. The launch counters are zeroed before and read after; the
      candidate sets entering NMS in precision mode are held against the
      plain NMS;
-  7. timing with CUDA events: each kernel and its plain version at the main
-     path's shapes, cuDNN's conv/relu/conv/relu/maxpool as the stem's
-     library call, forward img/s at bfloat16, precision, batch 8, and the
-     same forward cut at its layers.
+  7. int8 calibration: the C2F config with ``TPU.INT8_INFERENCE`` in
+     bfloat16, static activation scales from one seeded batch of 4;
+  8. K3-K6 against their plain versions at (4, 800, 1344), on the model's
+     stem weights and calibrated scales: K3, K4 and K6 equal, K5 within its
+     rule (no s8 value off by more than 1, under 0.1% off by 1);
+  9. int8 small-input agreement, per stem variant: 128x192, float32, card
+     against the CPU at the same scales; backbone features equal, and
+     detections matched as stated in ``p_int8_small``;
+ 10. the int8 main path, per stem variant (the default chain, PALLAS_CONV0,
+     PALLAS_PHASE_MAX, PALLAS_STEM_INT8, and STEM_S8_EPILOGUE +
+     STEM_PAIR_CONV + PALLAS_PHASE_MAX): ``compute_predictions`` in all three
+     modes at 800x1344, batch 4, bfloat16; the counters are zeroed before
+     each variant, and its kernel must have launched and the other int8
+     kernels (and K2) not;
+ 11. timing with CUDA events: each kernel and its plain version at the
+     checks' shapes, cuDNN's conv/relu/conv/relu/maxpool as the fp stem's
+     library call, the default int8 chain (im2col + ``torch._int_mm``) as the
+     yardstick of K3 and K5, fp and int8 forward img/s at bfloat16,
+     precision, batch 8 (int8 for each stem variant), and both forwards cut
+     at their layers.
 
 Every number is printed with the card's name and power limit; everything is
 also written to ``chiprun_out/chip_smoke.json``. The line before the last is
@@ -50,6 +66,17 @@ H, W = 800, 1344
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_S = 67e12  # CUDA cores
 PEAK_BF16_S = 989e12  # tensor cores, dense
+PEAK_INT8_S = 1979e12  # tensor cores, dense
+PAD1 = ((1, 1), (1, 1))
+# int8 stem variants: the TPU.* switches each sets, and the kernel it runs
+INT8_VARIANTS = {
+    "default": ({}, None),
+    "conv0": ({"PALLAS_CONV0": True}, "conv0_s8"),
+    "phase_max": ({"PALLAS_PHASE_MAX": True}, "phase_max_requant"),
+    "stem_int8": ({"PALLAS_STEM_INT8": True}, "fused_stem_int8"),
+    "pair_phase_max": ({"STEM_S8_EPILOGUE": True, "STEM_PAIR_CONV": True,
+                        "PALLAS_PHASE_MAX": True}, "pair_phase_max_s8"),
+}
 
 
 def card_line():
@@ -130,19 +157,42 @@ def main(argv=None):
     from scan_tpu_torch.modeling.fcos.module import mix_cls_maps
     from scan_tpu_torch.modeling.fcos.postprocess import fcos_postprocess
     from scan_tpu_torch.ops.locations import compute_locations
+    from scan_tpu_torch.modeling.layers import stored_scale
     from scan_tpu_torch.ops import nms as nms_mod
-    from scan_tpu_torch.ops.cuda import build, nms_kernel, stem_kernel
+    from scan_tpu_torch.ops import quant
+    from scan_tpu_torch.ops.cuda import (build, conv0_kernel, nms_kernel,
+                                         phase_max_kernel, stem_int8_kernel,
+                                         stem_kernel)
 
     s = Smoke(args.seed)
     dev = torch.device("cuda")
     print(s.card, flush=True)
     st = {}  # state handed from phase to phase
 
-    def c2f(dtype="float32", mode="precision"):
+    int8_kernels = {
+        "conv0_s8": conv0_kernel.conv0_s8,
+        "phase_max_requant": phase_max_kernel.phase_max_requant,
+        "fused_stem_int8": stem_int8_kernel.fused_stem_int8,
+        "pair_phase_max_s8": phase_max_kernel.pair_phase_max_s8,
+    }
+    counters = {"nms_sorted": nms_kernel.nms_sorted,
+                "vgg_stem_fused": stem_kernel.fused_stem, **int8_kernels}
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    def c2f(dtype="float32", mode="precision", int8=False, switches=None):
         cfg = get_default_cfg()
         cfg.merge_from_file(str(C2F))
         cfg.TPU.COMPUTE_DTYPE = dtype
         cfg.TEST.MODE = mode
+        cfg.TPU.INT8_INFERENCE = int8
+        for key, value in (switches or {}).items():
+            cfg.TPU[key] = value
         return cfg
 
     def images(b, h, w, seed):
@@ -250,6 +300,16 @@ def main(argv=None):
                                        rtol=1e-4, atol=1e-5)
             s.say(f"small_input_{mode}", f"valid={int(v.sum())} agree")
 
+    def check_preds(preds, n):
+        assert sorted(preds) == list(range(n)), sorted(preds)
+        for p in preds.values():
+            k = len(p["labels"])
+            assert k <= 100 and p["boxes"].shape == (k, 4)
+            assert np.isfinite(p["boxes"]).all()
+            assert np.isfinite(p["scores"]).all()
+            assert ((p["labels"] >= 1) & (p["labels"] <= 8)).all()
+        return [len(preds[i]["labels"]) for i in range(n)]
+
     # ---- 6 ------------------------------------------------------------
     def p_main():
         captured = []
@@ -270,29 +330,23 @@ def main(argv=None):
             dets = {dt: build_detector(c2f(dt), device=dev, seed=s.seed)
                     for dt in ("float32", "bfloat16")}
             torch.cuda.synchronize()
-            nms_kernel.nms_sorted.launches = 0
-            stem_kernel.fused_stem.launches = 0
+            zero_counts()
             for dt, det in dets.items():
                 for mode in ("common", "precision", "light"):
                     det.test_mode = mode
                     st["capture"] = mode == "precision"
                     preds = compute_predictions(det, [batch], progress_every=0)
                     st["capture"] = False
-                    assert sorted(preds) == [0, 1, 2, 3], sorted(preds)
-                    for p in preds.values():
-                        n = len(p["labels"])
-                        assert n <= 100 and p["boxes"].shape == (n, 4)
-                        assert np.isfinite(p["boxes"]).all()
-                        assert np.isfinite(p["scores"]).all()
-                        assert ((p["labels"] >= 1) & (p["labels"] <= 8)).all()
-                    s.say(f"main_{dt}_{mode}", "detections="
-                          f"{[len(preds[i]['labels']) for i in range(4)]}")
-            st["launches"] = {"nms": nms_kernel.nms_sorted.launches,
-                              "stem": stem_kernel.fused_stem.launches}
+                    s.say(f"main_{dt}_{mode}",
+                          f"detections={check_preds(preds, 4)}")
+            st["launches"] = counts()
         finally:
             pp_mod.nms_keep_mask = real
         s.say("main_path_launches", st["launches"])
-        assert st["launches"]["nms"] > 0 and st["launches"]["stem"] > 0
+        assert st["launches"]["nms_sorted"] > 0
+        assert st["launches"]["vgg_stem_fused"] > 0
+        assert not any(st["launches"][k] for k in int8_kernels), \
+            "an int8 kernel launched on the fp path"
         for boxes, scores, valid, labels, thr, keep in captured:
             order = torch.sort(-torch.where(valid, scores, torch.tensor(
                 nms_mod.NEG_INF, device=dev)), dim=-1, stable=True).indices
@@ -310,6 +364,184 @@ def main(argv=None):
         st["dets"] = dets
 
     # ---- 7 ------------------------------------------------------------
+    def set_switches(det, switches):
+        """The int8 stem switches of a built detector, as TPU.* would set
+        them (the small-input phase flips them on one pair of models)."""
+        body = det.backbone.body
+        for key in ("STEM_S8_EPILOGUE", "STEM_PAIR_CONV", "PALLAS_CONV0",
+                    "PALLAS_PHASE_MAX", "PALLAS_STEM_INT8"):
+            setattr(body, key.lower(), bool(switches.get(key, False)))
+
+    def p_int8_calibrate():
+        det = build_detector(c2f("bfloat16", "precision", int8=True),
+                             device=dev, seed=s.seed)
+        im, _ = images(4, H, W, s.seed + 3)
+        t0 = time.time()
+        det.calibrate_int8([im])
+        torch.cuda.synchronize()
+        s.say("int8_calibrate_s", time.time() - t0)
+        scales = {k: float(v) for k, v in det.state_dict().items()
+                  if k.endswith(("amax", "_act"))}
+        s.say("int8_scales", f"n={len(scales)} min={min(scales.values())} "
+              f"max={max(scales.values())} stem="
+              f"{[scales['backbone.body.' + n] for n in ('conv0_act', 'conv1_act', 'stem_out_act')]}")
+        assert scales and min(scales.values()) > 0, scales
+        st["int8_det"] = det
+
+    # ---- 8 ------------------------------------------------------------
+    def p_int8_kernels():
+        det = st["int8_det"]
+        body = det.backbone.body
+        bf = torch.bfloat16
+        im, _ = images(4, H, W, s.seed)
+        with torch.no_grad():
+            x = det._prep_images(im).to(bf)
+            s0, s1, s_out = (stored_scale(body, n) for n in
+                             ("conv0_act", "conv1_act", "stem_out_act"))
+            k0, k1 = body.conv0.hwio(), body.conv1.hwio()
+            b0, b1 = body.conv0.bias, body.conv1.bias
+            w0, w1, bb0, bb1 = (t.to(bf) for t in (k0, k1, b0, b1))
+            x_q, _ = quant.quantize_activation(x, s0)
+            # K4's input: the default chain's conv1_2 output; K6's: the
+            # s8-epilogue chain's
+            y = F.relu(quant.int8_conv(x, w0, bb0, 1, PAD1, out_dtype=bf,
+                                       act_scale=s0))
+            z = quant.int8_conv(y, w1, bb1, 1, PAD1, out_dtype=bf,
+                                act_scale=s1)
+            del y
+            y_q = quant.int8_conv(x, w0, bb0, 1, PAD1, act_scale=s0,
+                                  out_quant_scale=s1, fold_relu=True)
+            z_q = quant.int8_conv(y_q, w1, bb1, 1, PAD1, act_scale=s1,
+                                  out_quant_scale=s_out, fold_relu=True)
+            del y_q
+        args = {
+            "conv0_s8": (x_q, k0, b0, s0, s1),
+            "phase_max_requant": (z, torch.clamp_min(s_out, 1e-8)),
+            "fused_stem_int8": (x_q, k0, b0, k1, b1, s0, s1, s_out),
+            "pair_phase_max_s8": (z_q,),
+        }
+        # K3 and K5 take their weights packed once, as the main path does
+        kw = {"conv0_s8": dict(packed=conv0_kernel.pack_weight(k0)),
+              "fused_stem_int8": dict(
+                  packed=stem_int8_kernel.pack_weights(k0, k1))}
+        plain = {
+            "conv0_s8": conv0_kernel.conv0_s8_plain,
+            "phase_max_requant": phase_max_kernel.phase_max_requant_plain,
+            "fused_stem_int8": stem_int8_kernel.fused_stem_int8_plain,
+            "pair_phase_max_s8": phase_max_kernel.pair_phase_max_s8_plain,
+        }
+        errs = {}
+        for name, a in args.items():
+            with torch.no_grad():
+                got = int8_kernels[name](*a, **kw.get(name, {}))
+                want = plain[name](*a)
+            torch.cuda.synchronize()
+            diff = (got.int() - want.int()).abs()
+            n_diff = int((diff > 0).sum())
+            errs[name] = int(diff.max())
+            s.say(f"{name}_check",
+                  f"shape={tuple(got.shape)} mismatches={n_diff} "
+                  f"at_1_lsb={int((diff == 1).sum())} "
+                  f"max_abs_err={errs[name]} of {want.numel()}; "
+                  f"nonzero share={float((want != 0).float().mean())}")
+            assert got.shape == want.shape and got.dtype == torch.int8
+            if name == "fused_stem_int8":
+                assert errs[name] <= 1 and n_diff < 1e-3 * want.numel()
+            else:
+                assert n_diff == 0, f"{name} differs from its plain version"
+        st["int8_args"], st["int8_plain"], st["int8_err"] = args, plain, errs
+        st["int8_kw"] = kw
+
+    # ---- 9 ------------------------------------------------------------
+    def p_int8_small():
+        """Card against CPU at the same scales, 128x192, float32. Every int8
+        conv sums exactly and runs the same float32 steps on both, and the
+        kernels equal their plain versions, so the backbone's features
+        (VGG16 and FPN: int8 convs, ReLU, pools, the top-down adds) must be
+        equal. The heads also run GroupNorm and fp convs, whose sums the
+        card orders differently; where such a value sits on a rounding
+        boundary of the next quantize it moves a whole step (on this input:
+        2% of the first level's condgraph features, by one step). Scores
+        then move by ~1e-3 and near-equal candidates trade places at the
+        top-100 cut, so detections are matched as sets: a CPU detection is
+        matched by a card detection of the same image and label whose box
+        is within 1 px. At least 85% must be matched (94-100% measured on
+        an H100, per image and mode), with as many detections on each."""
+        h, w = 128, 192
+        im, sizes = images(2, h, w, s.seed + 1)
+        cfg = c2f("float32", "precision", int8=True)
+        gpu = build_detector(cfg, device=dev, seed=s.seed)
+        gpu.calibrate_int8([im])
+        cpu = build_detector(cfg, device="cpu", seed=s.seed)
+        cpu.load_state_dict(gpu.state_dict())
+        for d in (gpu, cpu):  # spread scores, ~40 px boxes: NMS has work
+            with torch.no_grad():
+                d.fcos.cls_logits.bias.zero_()
+                d.fcos.bbox_pred.bias.fill_(3.0)
+        for name, (switches, kernel) in INT8_VARIANTS.items():
+            for d in (gpu, cpu):
+                set_switches(d, switches)
+            zero_counts()
+            with torch.no_grad():
+                fg = gpu.backbone(gpu._prep_images(im))
+                fc = cpu.backbone(cpu._prep_images(im.cpu()))
+            feat_err = max((a.cpu() - b).abs().max().item()
+                           for a, b in zip(fg, fc))
+            got = {k: v.cpu() for k, v in
+                   gpu.forward_inference(im, sizes).items()}
+            want = cpu.forward_inference(im.cpu(), sizes.cpu())
+            launched = counts()
+            vg, vc = got["valid"], want["valid"]
+            matched = []
+            for b in range(vg.shape[0]):
+                box_g, box_c = got["boxes"][b][vg[b]], want["boxes"][b][vc[b]]
+                near = (box_c[:, None] - box_g[None]).abs().amax(-1) <= 1.0
+                same = want["labels"][b][vc[b]][:, None] == \
+                    got["labels"][b][vg[b]][None]
+                matched.append((near & same).any(1))
+            share = float(torch.cat(matched).float().mean())
+            s.say(f"int8_small_{name}",
+                  f"feature max_abs_err={feat_err} valid card/cpu="
+                  f"{int(vg.sum())}/{int(vc.sum())} matched={share} "
+                  f"launches={launched}")
+            assert feat_err == 0.0, f"{name}: backbone features differ"
+            assert int(vc.sum()) > 20, "the check needs detections"
+            assert int(vg.sum()) == int(vc.sum()), name
+            assert share >= 0.85, f"{name}: {share} of the detections match"
+            if kernel is not None:
+                assert launched[kernel] > 0, f"{name}: {kernel} did not run"
+
+    # ---- 10 -----------------------------------------------------------
+    def p_int8_main():
+        im, sizes = images(4, H, W, s.seed)
+        batch = dict(images=im.cpu().numpy(), sizes=sizes.cpu().numpy(),
+                     scales=np.ones((4, 2), np.float32),
+                     indices=np.arange(4))
+        state = st["int8_det"].state_dict()
+        st["int8_launches"], st["int8_dets"] = {}, {}
+        for name, (switches, kernel) in INT8_VARIANTS.items():
+            det = build_detector(
+                c2f("bfloat16", "precision", int8=True, switches=switches),
+                device=dev, seed=s.seed)
+            det.load_state_dict(state)  # the calibrated scales
+            torch.cuda.synchronize()
+            zero_counts()
+            for mode in ("common", "precision", "light"):
+                det.test_mode = mode
+                preds = compute_predictions(det, [batch], progress_every=0)
+                s.say(f"int8_main_{name}_{mode}",
+                      f"detections={check_preds(preds, 4)}")
+            torch.cuda.synchronize()
+            launched = counts()
+            s.say(f"int8_main_{name}_launches", launched)
+            assert launched["nms_sorted"] > 0, name
+            assert launched["vgg_stem_fused"] == 0, name
+            for k in int8_kernels:
+                assert (launched[k] > 0) == (k == kernel), (name, k, launched)
+            st["int8_launches"][name] = launched
+            st["int8_dets"][name] = det
+
+    # ---- 11 ------------------------------------------------------------
     def p_time():
         kernels = []
         b, v, lab, thr = st["nms_set"]
@@ -322,7 +554,7 @@ def main(argv=None):
         kernels.append(dict(
             name="nms_sorted", route="cuda", source="scan_tpu_torch/csrc/nms.cu",
             replaces="scan_tpu/ops/pallas/nms_kernel.py:71",
-            launches=st["launches"]["nms"], max_abs_err=0.0, ms=ms,
+            launches=st["launches"]["nms_sorted"], max_abs_err=0.0, ms=ms,
             plain_ms=plain, bound_ms=bound,
             bound_by="bytes" if nbytes / PEAK_BYTES_S > ops / PEAK_FP32_S
             else "operations", library_ms=None, shape=f"B={bsz} K={k}"))
@@ -364,7 +596,7 @@ def main(argv=None):
         kernels.append(dict(
             name="vgg_stem_fused", route="cuda", source="scan_tpu_torch/csrc/stem.cu",
             replaces="scan_tpu/ops/pallas/stem_kernel.py:215",
-            launches=st["launches"]["stem"],
+            launches=st["launches"]["vgg_stem_fused"],
             max_abs_err=st["stem_err"]["bfloat16"],
             ms=bf["ms"], plain_ms=bf["plain_ms"], bound_ms=bf["bound_ms"],
             bound_by=bf["bound_by"], library_ms=bf["library_ms"],
@@ -379,7 +611,12 @@ def main(argv=None):
         s.say("forward_bf16_precision_b8_ms", fwd_ms)
         s.say("forward_bf16_precision_b8_img_s", 8 * 1e3 / fwd_ms)
 
-        # the same forward cut at its layers, each timed on its own inputs
+        time_parts("forward", det, im, sizes, lambda x: stem_kernel.fused_stem(
+            x, *st["stem_w"], out_dtype=torch.bfloat16))
+
+    def time_parts(prefix, det, im, sizes, stem):
+        """The precision forward cut at its layers, each timed alone on its
+        own inputs; ``stem`` times stage 1 on the normalised batch."""
         with torch.no_grad():
             x = det._prep_images(im)
             feats = list(det.backbone(x))
@@ -397,12 +634,94 @@ def main(argv=None):
                 "fcos_head": lambda: det.fcos(mh[0], True),
                 "postprocess": lambda: fcos_postprocess(
                     pp, locs, cls_maps, head[1], head[2], sizes),
-                "stem_kernel": lambda: stem_kernel.fused_stem(
-                    x, *st["stem_w"], out_dtype=torch.bfloat16),
+                "stem": lambda: stem(x),
             }
             for name, fn in parts.items():
-                s.say(f"forward_part_{name}_ms", cuda_time(fn, 5, 1))
+                s.say(f"{prefix}_part_{name}_ms", cuda_time(fn, 5, 1))
         s.say("peak_mem_gib", torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    def p_time_int8():
+        args, plain, kw = st["int8_args"], st["int8_plain"], st["int8_kw"]
+        x_q = args["conv0_s8"][0]
+        bs, hh, ww, _ = x_q.shape
+        pix = bs * hh * ww
+        _, k0, b0, k1, b1, s0, s1, s_out = args["fused_stem_int8"]
+        wq0 = quant.prepare_weight(*quant.quantize_weight(k0))
+        wq1 = quant.prepare_weight(*quant.quantize_weight(k1))
+
+        def chain_conv0():  # the default chain's im2col + _int_mm, same work
+            return quant.int8_conv_q(x_q, wq0, b0, 1, PAD1, act_scale=s0,
+                                     out_quant_scale=s1, fold_relu=True)
+
+        def chain_stem():
+            y_q = quant.int8_conv_q(x_q, wq0, b0, 1, PAD1, act_scale=s0,
+                                    out_quant_scale=s1, fold_relu=True)
+            return quant.max_pool_2x2(quant.int8_conv_q(
+                y_q, wq1, b1, 1, PAD1, act_scale=s1, out_quant_scale=s_out,
+                fold_relu=True))
+
+        z_q = args["pair_phase_max_s8"][0]
+        zb, zh, zw, zc = z_q.shape
+
+        def library_pool():  # the s8 2x2 max-pool as one reduction over a view
+            return z_q.view(zb, zh // 2, 2, zw // 2, 2, zc).amax(dim=(2, 4))
+        w_bytes0 = 27 * 64 + 2 * 64 * 4
+        w_bytes1 = 576 * 64 + 2 * 64 * 4
+        pooled = pix // 4 * 64
+        work = {  # name: (bytes moved, operations, peak for them, yardsticks)
+            "conv0_s8": (pix * 3 + w_bytes0 + pix * 64, 2 * pix * 64 * 27,
+                         PEAK_INT8_S, dict(int_mm_chain=chain_conv0)),
+            "phase_max_requant": (args["phase_max_requant"][0].numel() * 2
+                                  + pooled, pooled * 7, PEAK_FP32_S, {}),
+            "fused_stem_int8": (pix * 3 + w_bytes0 + w_bytes1 + pooled,
+                                2 * pix * 64 * (27 + 576), PEAK_INT8_S,
+                                dict(int_mm_chain=chain_stem)),
+            "pair_phase_max_s8": (z_q.numel() + pooled, pooled * 3,
+                                  PEAK_FP32_S, dict(library=library_pool)),
+        }
+        replaces = {
+            "conv0_s8": ("conv0.cu", "conv0_kernel.py:128"),
+            "phase_max_requant": ("phase_max.cu", "phase_max_kernel.py:107"),
+            "fused_stem_int8": ("stem_int8.cu", "stem_int8_kernel.py:163"),
+            "pair_phase_max_s8": ("pair_phase_max.cu",
+                                  "phase_max_kernel.py:61"),
+        }
+        variant_of = {k: v for v, (_, k) in INT8_VARIANTS.items() if k}
+        with torch.no_grad():
+            for name, (nbytes, ops, peak, extra) in work.items():
+                a = args[name]
+                ms = cuda_time(
+                    lambda: int8_kernels[name](*a, **kw.get(name, {})), 20)
+                pms = cuda_time(lambda: plain[name](*a), 5, 1)
+                yard = {k: cuda_time(fn, 10) for k, fn in extra.items()}
+                bound = max(nbytes / PEAK_BYTES_S, ops / peak) * 1e3
+                src, tpu = replaces[name]
+                st["kernels"].append(dict(
+                    name=name, route="cuda",
+                    source=f"scan_tpu_torch/csrc/{src}",
+                    replaces=f"scan_tpu/ops/pallas/{tpu}",
+                    launches=st["int8_launches"][variant_of[name]][name],
+                    max_abs_err=float(st["int8_err"][name]), ms=ms,
+                    plain_ms=pms, bound_ms=bound,
+                    bound_by="bytes" if nbytes / PEAK_BYTES_S > ops / peak
+                    else "operations",
+                    library_ms=yard.get("library"),
+                    int_mm_chain_ms=yard.get("int_mm_chain"),
+                    shape=f"B={bs} {hh}x{ww}"))
+                s.say(f"time_{name}", f"ms={ms} plain_ms={pms} "
+                      f"bound_ms={bound} {yard} bytes={nbytes} ops={ops} "
+                      f"(B={bs}, {hh}x{ww})")
+
+        im, sizes = images(8, H, W, s.seed + 2)
+        for name, det in st["int8_dets"].items():
+            det.test_mode = "precision"
+            fwd_ms = cuda_time(lambda: det.forward_inference(im, sizes), 5, 2)
+            s.say(f"int8_{name}_forward_bf16_precision_b8_ms", fwd_ms)
+            s.say(f"int8_{name}_forward_bf16_precision_b8_img_s",
+                  8 * 1e3 / fwd_ms)
+        det = st["int8_dets"]["default"]
+        time_parts("int8_default", det, im, sizes,
+                   lambda x: det.backbone.body._stage1_int8(x))
 
     s.phase("build", p_build)
     s.phase("k1_nms_vs_plain", p_nms)
@@ -413,6 +732,17 @@ def main(argv=None):
         s.failed.append("timing (skipped)")
     else:
         s.phase("timing", p_time)
+    s.phase("int8_calibrate", p_int8_calibrate)
+    if "int8_calibrate" in s.failed:
+        s.failed.append("int8 phases (skipped)")
+    else:
+        s.phase("k3_k6_vs_plain", p_int8_kernels)
+        s.phase("int8_small_input_card_vs_cpu", p_int8_small)
+        s.phase("int8_main_path_full_width", p_int8_main)
+        if s.failed:
+            s.failed.append("int8 timing (skipped)")
+        else:
+            s.phase("int8_timing", p_time_int8)
 
     s.record["kernels"] = st.get("kernels")
     s.record["failed"] = s.failed

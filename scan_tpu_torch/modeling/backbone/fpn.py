@@ -5,6 +5,8 @@
 top-down upsample, and ``LastLevelP6P7`` (3x3 stride-2 convs, P7 from
 relu(P6)); SCAN configs take P6 from P5 (USE_C5=False). Submodule names
 follow ``scan_tpu`` (``fpn_inner{i}``, ``fpn_layer{i}``, their ``_gn``, ``p6``, ``p7``).
+With ``quant`` every conv, P6 and P7 included, runs the int8 branch
+(``scan_tpu/modeling/backbone/fpn.py:38-76``).
 """
 
 import torch.nn.functional as F
@@ -22,7 +24,7 @@ def upsample_nearest_2x(x):
 class FPN(nn.Module):
     def __init__(self, in_channels, in_features, out_channels=256,
                  top_block="p6p7", use_gn=False, use_relu=False,
-                 use_c5_for_p6=False):
+                 use_c5_for_p6=False, quant=False):
         super().__init__()
         self.in_features = tuple(in_features)
         self.top_block = top_block
@@ -35,7 +37,7 @@ class FPN(nn.Module):
                                  (f"fpn_layer{i + 1}", out_channels, 3)):
                 self.add_module(name, Conv(
                     cin, out_channels, k, bias=not use_gn,
-                    kernel_init="kaiming_uniform_a1"))
+                    kernel_init="kaiming_uniform_a1", quant=quant))
                 if use_gn:
                     self.add_module(name + "_gn", GroupNorm32(out_channels))
         self.n = n
@@ -43,9 +45,9 @@ class FPN(nn.Module):
             p6_in = in_channels[self.in_features[-1]] if use_c5_for_p6 \
                 else out_channels
             self.p6 = Conv(p6_in, out_channels, 3, stride=2,
-                           kernel_init="kaiming_uniform_a1")
+                           kernel_init="kaiming_uniform_a1", quant=quant)
             self.p7 = Conv(out_channels, out_channels, 3, stride=2,
-                           kernel_init="kaiming_uniform_a1")
+                           kernel_init="kaiming_uniform_a1", quant=quant)
 
     def _block(self, name, x):
         """conv -> (GN) -> (ReLU), the FPN's ``block`` (``fpn.py:46-55``)."""

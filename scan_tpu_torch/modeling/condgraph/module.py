@@ -9,7 +9,10 @@ layers, the prototype EMA and the losses of training belong to a later
 slice, as do their submodules (``multihead_attn``, ``proto_cls*``,
 ``gcn_layer*``, ``edge_project_*``).
 
-Features are NHWC lists, one tensor per FPN level.
+Features are NHWC lists, one tensor per FPN level. With ``quant`` the
+``head_in`` and ``head_out`` towers run the int8 branch; the dynamic conv
+of the act maps stays fp (``scan_tpu/modeling/condgraph/module.py:144-161,
+207-219``).
 """
 
 import dataclasses
@@ -115,9 +118,10 @@ class GraphTower(ConvTower):
     """Projection tower (reference GRAPHHead, ``condgraph.py:68-119``):
     num_convs x [conv3x3 -> (GN) -> ReLU]."""
 
-    def __init__(self, num_convs, in_channels, out_channels, norm=None):
+    def __init__(self, num_convs, in_channels, out_channels, norm=None,
+                 quant=False):
         super().__init__(num_convs, in_channels, out_channels,
-                         norm="GN" if norm == "GN" else "NONE")
+                         norm="GN" if norm == "GN" else "NONE", quant=quant)
 
 
 class TorchRNN(nn.Module):
@@ -163,14 +167,15 @@ class TorchRNN(nn.Module):
 class CondGraph(nn.Module):
     """The SCAN middle head in inference mode."""
 
-    def __init__(self, cfg: CondGraphConfig):
+    def __init__(self, cfg: CondGraphConfig, quant: bool = False):
         super().__init__()
         self.cfg = c = cfg
         self.head_in = GraphTower(c.num_convs_in, c.in_channels, c.in_channels,
-                                  norm=c.in_norm)
+                                  norm=c.in_norm, quant=quant)
         if c.cat_act_map:
             self.head_out = GraphTower(
-                c.num_convs_out, c.in_channels + c.used_classes, c.in_channels)
+                c.num_convs_out, c.in_channels + c.used_classes, c.in_channels,
+                quant=quant)
         if c.use_rnn:
             self.cond_rnn = TorchRNN(c.proto_channel, 512, 2)
             self.cond_nx1 = Linear(512 * c.proto_iter, 256)

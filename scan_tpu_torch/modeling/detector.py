@@ -5,13 +5,20 @@
 submodules (``backbone``, ``middle_head``, ``fcos``, the names of
 ``scan_tpu``'s parameter dict) and the prototype state as buffers.
 
-This slice ports the inference parts: construction, ``_prep_images`` and
+The inference parts are ported: construction, ``_prep_images`` and
 ``forward_inference`` for the FCOS head with condgraph in all three
-TEST.MODEs. Discriminators, ATSS, int8 and training come later.
+TEST.MODEs, in fp32/bf16 or, with ``TPU.INT8_INFERENCE``, as w8a8 int8
+(``scan_tpu/modeling/detector.py:82-98, 361-464``) with ``calibrate_int8``
+for static activation scales. ``scan_tpu`` keeps int8 variants of the
+backbone and heads beside the fp ones over one parameter tree; the port
+has no training yet, so an int8 detector's backbone, middle head and head
+are the int8 variants themselves, over the same float32 parameters.
+Discriminators, ATSS and training come later.
 """
 
 import dataclasses
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -23,15 +30,16 @@ from .condgraph.prototype import ProtoState, init_proto_state
 from .fcos.head import FCOSHead
 from .fcos.module import mix_cls_maps
 from .fcos.postprocess import PostProcessConfig, fcos_postprocess
-from .layers import init_parameters
+from .layers import calibration, init_parameters
+
 
 class SCANDetector(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         if cfg.MODEL.ATSS_ON:
             raise NotImplementedError("ATSS is not ported to scan_tpu_torch yet")
-        if cfg.TPU.get("INT8_INFERENCE", False):
-            raise NotImplementedError("int8 inference is not ported yet")
+        self.int8_inference = bool(cfg.TPU.get("INT8_INFERENCE", False))
+        quant = self.int8_inference
         self.cfg = cfg
         self.compute_dtype = (
             torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16"
@@ -39,11 +47,11 @@ class SCANDetector(nn.Module):
         )
         self.strides = tuple(cfg.MODEL.FCOS.FPN_STRIDES)
         self.num_classes = cfg.MODEL.FCOS.NUM_CLASSES
-        self.backbone = build_backbone(cfg)
+        self.backbone = build_backbone(cfg, quant)
         self.condgraph_on = cfg.MODEL.MIDDLE_HEAD.CONDGRAPH_ON
         if self.condgraph_on:
             self.cg_cfg = CondGraphConfig.from_cfg(cfg)
-            self.middle_head = CondGraph(self.cg_cfg)
+            self.middle_head = CondGraph(self.cg_cfg, quant)
             shape = (self.cg_cfg.used_classes, self.cg_cfg.proto_channel)
             if self.cg_cfg.proto_iter > 1:
                 shape += (self.cg_cfg.proto_iter,)
@@ -57,6 +65,7 @@ class SCANDetector(nn.Module):
             prior_prob=cfg.MODEL.FCOS.PRIOR_PROB,
             with_reg_ctr=cfg.MODEL.FCOS.REG_CTR_ON,
             num_levels=len(self.strides),
+            quant=quant,
         )
         self.test_mode = cfg.TEST.MODE
         self.pp_cfg = PostProcessConfig(
@@ -98,9 +107,13 @@ class SCANDetector(nn.Module):
 
     def set_compute_dtype(self):
         """Convolutions and GroupNorms run in TPU.COMPUTE_DTYPE, as flax's
-        ``dtype=`` does; dense layers, Scales and prototypes stay float32."""
+        ``dtype=`` does; dense layers, Scales and prototypes stay float32.
+        The int8 modules keep their float32 parameters (they quantize the
+        float32 masters) and take the compute dtype for their outputs."""
         for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.GroupNorm)):
+            if getattr(m, "quant", False):
+                m.dtype = self.compute_dtype
+            elif isinstance(m, (nn.Conv2d, nn.GroupNorm)):
                 m.to(self.compute_dtype)
                 if m.weight.dim() == 4:
                     m.to(memory_format=torch.channels_last)
@@ -120,6 +133,29 @@ class SCANDetector(nn.Module):
         mean = torch.tensor(self.pixel_mean, dtype=torch.float32, device=x.device)
         std = torch.tensor(self.pixel_std, dtype=torch.float32, device=x.device)
         return ((x - mean) / std).contiguous()
+
+    @torch.no_grad()
+    def calibrate_int8(self, image_batches):
+        """Store static int8 activation scales (``detector.py:361-414``):
+        run the inference path over each batch of ``image_batches`` (uint8
+        NHWC, numpy or tensors) with every int8 conv quantizing dynamically
+        and recording its input's running |x|max. In ``light`` mode the cls
+        tower does not run and keeps no scale, as in ``scan_tpu``. No-op
+        without ``TPU.INT8_INFERENCE``."""
+        if not self.int8_inference:
+            return self
+        device = next(self.parameters()).device
+        with calibration(self):
+            for images in image_batches:
+                if not isinstance(images, torch.Tensor):
+                    images = torch.from_numpy(np.asarray(images))
+                x = self._prep_images(images.to(device))
+                feats = list(self.backbone(x))
+                if self.condgraph_on:
+                    feats = self.middle_head(feats, self.proto_state(),
+                                             "inference")[0]
+                self.fcos(feats, self.test_mode != "light")
+        return self
 
     @torch.no_grad()
     def forward_inference(self, images, image_sizes):

@@ -6,6 +6,8 @@ shared across levels, 3x3 prediction convs (Normal(0.01), zero bias), the
 focal prior bias on ``cls_logits``, a learnable Scale per level on the box
 regression followed by exp (clamped at 25, ``head.py:73-77``), centerness
 off the regression tower when REG_CTR_ON (reference ``fcos.py:13-114``).
+With ``quant`` the two towers run the int8 branch; ``cls_logits``,
+``bbox_pred`` and ``centerness`` stay fp (``scan_tpu/modeling/fcos/head.py:29-50``).
 """
 
 import math
@@ -19,11 +21,13 @@ from ..layers import Conv, ConvTower, Scale
 class FCOSHead(nn.Module):
     def __init__(self, num_classes, num_convs_cls=4, num_convs_reg=4,
                  in_channels=256, prior_prob=0.01, with_reg_ctr=True,
-                 num_levels=5):
+                 num_levels=5, quant=False):
         super().__init__()
         self.with_reg_ctr = with_reg_ctr
-        self.cls_tower = ConvTower(num_convs_cls, in_channels, in_channels)
-        self.bbox_tower = ConvTower(num_convs_reg, in_channels, in_channels)
+        self.cls_tower = ConvTower(num_convs_cls, in_channels, in_channels,
+                                   quant=quant)
+        self.bbox_tower = ConvTower(num_convs_reg, in_channels, in_channels,
+                                    quant=quant)
         bias_value = -math.log((1 - prior_prob) / prior_prob)
         self.cls_logits = Conv(in_channels, num_classes - 1, 3,
                                bias_value=bias_value)

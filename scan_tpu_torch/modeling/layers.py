@@ -9,14 +9,83 @@ Normal(0.01) with zero bias (``fcos.py:67-73``), FPN convs
 kaiming_uniform(a=1), VGG convs kaiming normal (fan_out, ReLU gain),
 GroupNorm(32, eps=1e-5) with unit weight. ``init_parameters`` applies these
 from a ``torch.Generator``, so a seed gives the same weights on any device.
-The int8 branch of ``Conv`` belongs to a later slice.
+
+``Conv(quant=True)`` is the w8a8 int8 branch (``scan_tpu``'s ``Conv`` with
+``quant``, ``layers.py:59-137``) over the same float32 parameters; see
+``ops/quant.py``. Its static activation scale is a running |x|max buffer,
+``amax`` (``scan_tpu``'s ``act_scales/amax``), divided by 127 when used.
+The buffer holds ``NO_SCALE`` until a calibration pass (``calibration``),
+the weight bridge or ``load_state_dict`` stores a value; without one the
+scale is dynamic, one |x|max per batch, as in ``scan_tpu``. Which buffers
+hold a value is read once at each of those points into the module's
+``calibrated`` set, so the forward decides static or dynamic without
+reading the device.
 """
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.quant import (QuantizedActivation, f32, int8_conv_q, prepare_weight,
+                         quantize_weight)
+
+NO_SCALE = -1.0  # an |x|max buffer that holds no value (an |x|max is >= 0)
+
+
+def add_scales(module: nn.Module, names):
+    """Give ``module`` the |x|max buffers ``names``, holding no value yet."""
+    module.scale_names = tuple(names)
+    module.calibrated = set()
+    for name in names:
+        module.register_buffer(name, torch.tensor(NO_SCALE))
+    module.register_load_state_dict_post_hook(_read_own_scales)
+
+
+def _read_own_scales(module: nn.Module, incompatible_keys=None):
+    module.calibrated = {n for n in module.scale_names
+                         if float(getattr(module, n)) >= 0}
+
+
+def read_scales(module: nn.Module):
+    """Note which scale buffers of ``module`` and its submodules hold a
+    value (one host read each)."""
+    for m in module.modules():
+        if hasattr(m, "scale_names"):
+            _read_own_scales(m)
+
+
+def stored_scale(module: nn.Module, name: str):
+    """The static scale ``amax / 127`` of the buffer ``name``, computed on
+    its device, or None when the buffer holds no value."""
+    if name not in getattr(module, "calibrated", ()):
+        return None
+    buf = getattr(module, name)
+    return buf / f32(127.0, buf)
+
+
+def record_amax(module: nn.Module, name: str, x: torch.Tensor):
+    """Calibration: fold |x|max into the running maximum in buffer ``name``."""
+    buf = getattr(module, name)
+    buf.copy_(torch.maximum(buf, x.float().abs().amax()))
+
+
+@contextlib.contextmanager
+def calibration(module: nn.Module):
+    """Run ``module`` as ``scan_tpu`` runs a calibration pass (``apply`` with
+    ``mutable=["act_scales"]``): every int8 conv quantizes dynamically and
+    records its input's |x|max; the int8 stem returns fp."""
+    mods = [m for m in module.modules() if hasattr(m, "calibrating")]
+    for m in mods:
+        m.calibrating = True
+    try:
+        yield module
+    finally:
+        for m in mods:
+            m.calibrating = False
+        read_scales(module)
 
 
 def to_nchw(x):
@@ -35,18 +104,62 @@ class Conv(nn.Conv2d):
     ``kernel_init`` names the init rule (``normal`` with ``std``, ``vgg``,
     ``kaiming_uniform_a1`` or ``lecun_normal``); ``bias_value`` is the
     constant bias init.
+
+    ``quant=True`` runs the int8 branch. Its parameters stay float32 (the
+    weights it quantizes are the float32 masters, as in ``scan_tpu``), its
+    output is in ``dtype`` (the compute dtype, set by the detector) or the
+    input's, and it keeps an ``amax`` buffer unless ``act_scale=False``
+    (the stem's convs, whose scales live on the stem). A
+    ``QuantizedActivation`` input is taken as it is, at its own scale.
     """
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
-                 bias=True, kernel_init="normal", std=0.01, bias_value=0.0):
+                 bias=True, kernel_init="normal", std=0.01, bias_value=0.0,
+                 quant=False, act_scale=True):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
                          padding=kernel_size // 2, bias=bias)
         self.kernel_init = kernel_init
         self.std = std
         self.bias_value = bias_value
+        self.quant = quant
+        if quant:
+            self.dtype = None
+            self.calibrating = False
+            self._wq = (None, None)
+            if act_scale:
+                add_scales(self, ("amax",))
+
+    def hwio(self):
+        """The weight in ``scan_tpu``'s (kh, kw, cin, cout) layout (a view)."""
+        return self.weight.permute(2, 3, 1, 0)
+
+    def quantized_weight(self):
+        """The int8 kernel, quantized once per weight version."""
+        key = (self.weight.data_ptr(), self.weight._version)
+        if self._wq[0] != key:
+            with torch.no_grad():
+                self._wq = (key, prepare_weight(*quantize_weight(self.hwio())))
+        return self._wq[1]
 
     def forward(self, x):
-        return to_nhwc(super().forward(to_nchw(x)))
+        if not self.quant:
+            if isinstance(x, QuantizedActivation):
+                x = x.dequantize(self.weight.dtype)
+            return to_nhwc(super().forward(to_nchw(x)))
+        p = self.kernel_size[0] // 2
+        kw = dict(stride=self.stride, padding=((p, p), (p, p)))
+        if isinstance(x, QuantizedActivation):
+            return int8_conv_q(x.q, self.quantized_weight(), self.bias,
+                               out_dtype=self.dtype or torch.float32,
+                               act_scale=x.scale, **kw)
+        act_scale = None
+        if self.calibrating:
+            record_amax(self, "amax", x)
+        else:
+            act_scale = stored_scale(self, "amax")
+        return int8_conv_q(x, self.quantized_weight(), self.bias,
+                           out_dtype=self.dtype or x.dtype,
+                           act_scale=act_scale, **kw)
 
     @torch.no_grad()
     def init_parameters(self, gen: torch.Generator):
@@ -84,15 +197,17 @@ class GroupNorm32(nn.GroupNorm):
 
 class ConvTower(nn.Module):
     """num_convs x [conv3x3 -> (GN) -> ReLU]; the FCOS/condgraph tower.
-    Submodules are named ``conv{i}`` / ``gn{i}`` as in ``scan_tpu``."""
+    Submodules are named ``conv{i}`` / ``gn{i}`` as in ``scan_tpu``; with
+    ``quant`` the convs run the int8 branch."""
 
-    def __init__(self, num_convs, in_channels, features, norm="GN"):
+    def __init__(self, num_convs, in_channels, features, norm="GN",
+                 quant=False):
         super().__init__()
         self.num_convs = num_convs
         self.norm = norm
         for i in range(num_convs):
             cin = in_channels if i == 0 else features
-            self.add_module(f"conv{i}", Conv(cin, features, 3))
+            self.add_module(f"conv{i}", Conv(cin, features, 3, quant=quant))
             if norm == "GN":
                 self.add_module(f"gn{i}", GroupNorm32(features))
 

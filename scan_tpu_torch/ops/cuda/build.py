@@ -10,7 +10,8 @@ No PyTorch headers are included, so a build takes seconds. Libraries go to
 ``build/scan_tpu_torch/`` beside the package (listed in ``.gitignore``), keyed
 by a hash of the source and the flags, so an edited source rebuilds.
 ``--fmad=false`` keeps nvcc from contracting ``a*b + c`` into an FMA: the NMS
-kernel's IoU must round exactly as the plain PyTorch version does. Nothing
+kernel's IoU and the int8 kernels' dequant epilogues must round exactly as
+the plain PyTorch versions do. Division stays IEEE (no fast math). Nothing
 here runs at import; the first launch builds, and ``build_all`` builds every
 source at once, one ``nvcc`` each, all started together.
 """
@@ -29,7 +30,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("nms", "stem")
+SOURCES = ("nms", "stem", "phase_max", "pair_phase_max", "conv0", "stem_int8")
 
 _lock = threading.Lock()
 _libs = {}

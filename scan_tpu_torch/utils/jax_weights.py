@@ -12,21 +12,47 @@ wrapper scopes (``Conv_0``, ``GroupNorm_0``) and converting layouts:
   * GroupNorm / LayerNorm ``scale`` -> ``weight`` (``Scale``'s stays ``scale``);
   * ``TorchRNN`` weights are in torch layout already.
 
+The static int8 activation scales of a calibrated tree, the
+``act_scales`` collection beside ``params``, go into the port's scale
+buffers under the same path: ``.../<conv>/amax`` to ``<conv>.amax`` and the
+stem's ``conv0_act``, ``conv1_act``, ``stem_out_act`` to the body's buffers
+of those names. A tree calibrated on a backend where ``scan_tpu`` runs the
+naive stem holds ``conv0/amax``, ``conv1/amax`` and ``conv2/amax`` instead;
+calibration measures the same tensors under both sets of names (stage 1's
+input, its ReLU'd conv1_1 and its pooled output, which conv2 reads), so
+those fill in the stem's names.
+
 Parameters of parts the port does not have yet (discriminators, the
 training-only condgraph layers) are skipped; every parameter of the port
-must be covered, or ``load_jax_params`` raises. Nothing here imports JAX.
+must be covered, and every key carried over must exist in the port, or
+``load_jax_params`` raises. A scale buffer with no scale in the tree (an
+uncalibrated tree, or the cls tower after a ``light``-mode calibration)
+holds no value afterwards, and its conv quantizes dynamically, as
+``scan_tpu``'s does. Nothing here imports JAX.
 """
 
 import numpy as np
 import torch
 
-_WRAPPERS = ("params", "Conv_0", "GroupNorm_0")
+from ..modeling.layers import NO_SCALE, read_scales
+
+_WRAPPERS = ("params", "act_scales", "Conv_0", "GroupNorm_0")
+# the port's stem scales <- the naive stem's (scan_tpu's name for each)
+_STEM_ALIASES = {
+    "backbone.body.conv0_act": "backbone.body.conv0.amax",
+    "backbone.body.conv1_act": "backbone.body.conv1.amax",
+    "backbone.body.stem_out_act": "backbone.body.conv2.amax",
+}
 # scan_tpu modules that only training or other heads use
 _NOT_PORTED = {
     "middle_head": ("multihead_attn", "proto_cls_hidden", "proto_cls",
                     "gcn_layer1", "gcn_layer2", "edge_project_u",
                     "edge_project_v"),
 }
+
+
+def _is_scale(key: str) -> bool:
+    return key.endswith(".amax") or key.endswith("_act")
 
 
 def _flatten(tree, path=()):
@@ -59,24 +85,43 @@ def convert_params(params: dict) -> dict:
     return out
 
 
+def _alias_stem_scales(sd: dict, own_keys) -> dict:
+    """Fill the port's stem scales from the naive stem's names where the
+    tree has only those, and drop the naive names the port does not have."""
+    sd = dict(sd)
+    own_keys = set(own_keys)
+    for key, naive in _STEM_ALIASES.items():
+        if key in own_keys and key not in sd and naive in sd:
+            sd[key] = sd[naive]
+    for naive in _STEM_ALIASES.values():
+        if naive in sd and naive not in own_keys:
+            del sd[naive]
+    return sd
+
+
 @torch.no_grad()
 def load_jax_params(detector, params: dict, proto_state=None):
-    """Copy ``scan_tpu`` parameters (and a numpy ``ProtoState`` or
-    (prototype, counter) pair) into ``detector`` in place, keeping each
-    tensor's device and dtype. Raises if a port parameter is not covered or
-    a shape differs."""
-    sd = convert_params(params)
+    """Copy ``scan_tpu`` parameters and activation scales (and a numpy
+    ``ProtoState`` or (prototype, counter) pair) into ``detector`` in place,
+    keeping each tensor's device and dtype. Raises if a port parameter is
+    not covered, a key has no place in the port, or a shape differs; scale
+    buffers the tree has no value for are set to hold none."""
     own = {k: v for k, v in detector.state_dict().items()
            if k not in ("prototype", "proto_counter")}
-    missing = sorted(set(own) - set(sd))
+    sd = _alias_stem_scales(convert_params(params), own)
+    missing = sorted(k for k in set(own) - set(sd) if not _is_scale(k))
     extra = sorted(set(sd) - set(own))
     if missing or extra:
         raise KeyError(f"parameter mismatch: missing {missing}, unexpected {extra}")
     for k, v in own.items():
+        if k not in sd:
+            v.fill_(NO_SCALE)
+            continue
         if tuple(v.shape) != tuple(sd[k].shape):
             raise ValueError(f"{k}: port {tuple(v.shape)} vs scan_tpu "
                              f"{tuple(sd[k].shape)}")
         v.copy_(sd[k])
+    read_scales(detector)
     if proto_state is not None:
         proto, counter = proto_state[0], proto_state[1]
         detector.prototype.copy_(torch.from_numpy(np.array(proto, np.float32)))

@@ -45,7 +45,10 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "scan_tpu_torch.modeling.detector" in res["modules"]
-    assert "scan_tpu_torch.ops.cuda.nms_kernel" in res["modules"]
+    for name in ("ops.cuda.nms_kernel", "ops.cuda.stem_kernel", "ops.quant",
+                 "ops.cuda.conv0_kernel", "ops.cuda.phase_max_kernel",
+                 "ops.cuda.stem_int8_kernel"):
+        assert "scan_tpu_torch." + name in res["modules"], name
     assert res["bad"] == []
     if not res["cuda"]:
         assert res["raised"], "build_detector(cfg) must raise without a card"

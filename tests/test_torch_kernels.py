@@ -100,3 +100,130 @@ def test_stem_kernel_refuses_other_widths(cuda_device):
             torch.zeros(16, device=cuda_device),
             torch.zeros(16, 16, 3, 3, device=cuda_device),
             torch.zeros(16, device=cuda_device))
+
+
+# ---- the int8 path: the s8 conv (im2col + torch._int_mm) and K3-K6 ----
+#
+# Tolerances: everything on the int8 path must be equal. The s32 sums are
+# exact; every epilogue runs the same float32 steps in the same order, with
+# IEEE division and no FMA contraction, so the plain version on the card
+# gives the same bytes as the kernel. K5 is held to its spec
+# (tests/test_stem_int8_kernel.py): no element off by more than 1 LSB and
+# fewer than 0.1% off by 1; the test also reports that it is exact.
+
+from scan_tpu_torch.ops import quant  # noqa: E402
+from scan_tpu_torch.ops.cuda import (  # noqa: E402
+    conv0_kernel, phase_max_kernel, stem_int8_kernel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,stride,padding,cin", [
+    (3, 1, ((1, 1), (1, 1)), 3), (3, 2, ((1, 1), (1, 1)), 64),
+    (3, (2, 1), ((1, 0), (1, 1)), 16), (1, 1, ((0, 0), (0, 0)), 256),
+    (3, 1, ((1, 1), (1, 1)), 265)])
+def test_int8_conv_on_card_equals_cpu(cuda_device, k, stride, padding, cin):
+    rng = np.random.RandomState(cin)
+    x = torch.from_numpy(rng.randn(2, 5, 7, cin).astype(np.float32) * 3)
+    w = torch.from_numpy((rng.randn(k, k, cin, 64) * 0.1).astype(np.float32))
+    b = torch.from_numpy(rng.randn(64).astype(np.float32))
+    for oq, relu in ((None, False), (None, True), (0.05, True), (0.05, False)):
+        outs = []
+        for dev in ("cpu", cuda_device):
+            s = None if oq is None else torch.tensor(oq, device=dev)
+            outs.append(quant.int8_conv(
+                x.to(dev), w.to(dev), b.to(dev), stride=stride,
+                padding=padding, out_quant_scale=s, fold_relu=relu).cpu())
+        assert torch.equal(outs[0], outs[1]), (oq, relu)
+
+
+def _int8_stem_data(b, h, w, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    x_q = torch.randint(-127, 128, (b, h, w, 3), generator=g).to(torch.int8)
+    w0 = torch.randn(3, 3, 3, 64, generator=g) * 0.2
+    b0 = torch.randn(64, generator=g) * 0.5
+    w1 = torch.randn(3, 3, 64, 64, generator=g) * 0.05
+    b1 = torch.randn(64, generator=g) * 0.5
+    scales = [torch.tensor(v) for v in (0.31, 0.9, 0.8)]
+    return [t.to(device) for t in (x_q, w0, b0, w1, b1, *scales)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w", [(64, 96), (37, 50), (200, 336)])
+def test_conv0_kernel_matches_plain(cuda_device, h, w):
+    x_q, w0, b0, _, _, s0, s1, _ = _int8_stem_data(2, h, w, h * w, cuda_device)
+    before = conv0_kernel.conv0_s8.launches
+    got = conv0_kernel.conv0_s8(x_q, w0, b0, s0, s1 * 0.1)
+    torch.cuda.synchronize()
+    assert conv0_kernel.conv0_s8.launches == before + 1
+    want = conv0_kernel.conv0_s8_plain(x_q, w0, b0, s0, s1 * 0.1)
+    assert got.shape == (2, h, w, 64) and got.dtype == torch.int8
+    assert torch.equal(got, want)
+    assert 0 < int((want != 0).sum()) < want.numel()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,w", [(16, 32), (37, 50), (400, 672)])
+def test_phase_max_requant_kernel_matches_plain(cuda_device, dtype, h, w):
+    g = torch.Generator().manual_seed(h + w)
+    z = (torch.randn(2, h, w, 64, generator=g) * 40).to(dtype).to(cuda_device)
+    s = torch.tensor(0.37, device=cuda_device)
+    before = phase_max_kernel.phase_max_requant.launches
+    got = phase_max_kernel.phase_max_requant(z, s)
+    torch.cuda.synchronize()
+    assert phase_max_kernel.phase_max_requant.launches == before + 1
+    assert got.shape == (2, h // 2, w // 2, 64)
+    assert torch.equal(got, phase_max_kernel.phase_max_requant_plain(z, s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w", [(16, 32), (37, 50), (400, 672)])
+def test_pair_phase_max_kernel_matches_plain(cuda_device, h, w):
+    g = torch.Generator().manual_seed(h * w)
+    z = torch.randint(-127, 128, (2, h, w, 64), generator=g).to(
+        torch.int8).to(cuda_device)
+    before = phase_max_kernel.pair_phase_max_s8.launches
+    got = phase_max_kernel.pair_phase_max_s8(z)
+    torch.cuda.synchronize()
+    assert phase_max_kernel.pair_phase_max_s8.launches == before + 1
+    assert torch.equal(got, phase_max_kernel.pair_phase_max_s8_plain(z))
+
+
+@pytest.mark.gpu
+def test_phase_max_kernels_refuse_narrow_channels(cuda_device):
+    with pytest.raises(ValueError):
+        phase_max_kernel.phase_max_requant(
+            torch.zeros(1, 4, 4, 4, device=cuda_device),
+            torch.tensor(0.5, device=cuda_device))
+    with pytest.raises(ValueError):
+        phase_max_kernel.pair_phase_max_s8(
+            torch.zeros(1, 4, 4, 8, dtype=torch.int8, device=cuda_device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w", [(16, 32), (24, 64), (37, 50), (200, 336)])
+def test_stem_int8_kernel_matches_plain(cuda_device, h, w):
+    data = _int8_stem_data(2, h, w, h + w, cuda_device)
+    before = stem_int8_kernel.fused_stem_int8.launches
+    got = stem_int8_kernel.fused_stem_int8(*data)
+    torch.cuda.synchronize()
+    assert stem_int8_kernel.fused_stem_int8.launches == before + 1
+    want = stem_int8_kernel.fused_stem_int8_plain(*data)
+    assert got.shape == want.shape == (2, h // 2, w // 2, 64)
+    diff = (got.int() - want.int()).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff > 0).float().mean()) < 1e-3
+    assert torch.equal(got, want), "expected equal: same steps, same order"
+
+
+@pytest.mark.gpu
+def test_stem_int8_kernel_zero_input_edge(cuda_device):
+    """All-zero input: the output is the quantized bias chain, with conv1_2
+    seeing zero padding at the image border (the masking case)."""
+    x_q, w0, b0, w1, b1, _, _, _ = _int8_stem_data(1, 8, 16, 1, cuda_device)
+    x_q = torch.zeros_like(x_q)
+    s = [torch.tensor(v, device=cuda_device) for v in (1.0, 0.5, 0.5)]
+    got = stem_int8_kernel.fused_stem_int8(x_q, w0, b0 * 2, w1, b1, *s)
+    want = stem_int8_kernel.fused_stem_int8_plain(x_q, w0, b0 * 2, w1, b1, *s)
+    assert torch.equal(got, want)
+    assert int(want.ne(want[:, 1:2, 1:2]).sum()) > 0, "border must differ"

@@ -6,7 +6,8 @@ SCAN configs). Returns the post-pool feature of every stage, C1..C5.
 Convs are named ``conv0..conv12`` as in ``scan_tpu``, so weights carry over.
 
 fp path: stage 1 (conv1_1, ReLU, conv1_2, ReLU, pool) goes through
-``ops/cuda/stem_kernel.py::fused_stem``, kernel K2 on the card.
+``ops/cuda/stem_kernel.py::fused_stem``, kernel K2 on the card, with its
+weights packed once per weight version.
 
 int8 path (``quant``): stages 2-5 are int8 convs, and stage 1 follows
 ``scan_tpu``'s ``_stage1_s2d`` (``vgg.py:236-528``) branch for branch, with
@@ -48,8 +49,10 @@ from torch import nn
 
 from ...ops.cuda.conv0_kernel import conv0_s8, pack_weight
 from ...ops.cuda.phase_max_kernel import pair_phase_max_s8, phase_max_requant
-from ...ops.cuda.stem_int8_kernel import fused_stem_int8, pack_weights
+from ...ops.cuda.stem_int8_kernel import fused_stem_int8
+from ...ops.cuda.stem_int8_kernel import pack_weights as pack_stem_int8
 from ...ops.cuda.stem_kernel import STEM_CH, STEM_IN, fused_stem
+from ...ops.cuda.stem_kernel import pack_weights as pack_stem
 from ...ops.quant import (QuantizedActivation, int8_conv, max_pool_2x2,
                           quantize_activation)
 from ..layers import (Conv, add_scales, record_amax, stored_scale, to_nchw,
@@ -78,6 +81,7 @@ class VGG16(nn.Module):
         self.pallas_phase_max = pallas_phase_max
         self.pallas_stem_int8 = pallas_stem_int8
         self.stem = self.stage_blocks[0] == 2
+        self._packs = {}
         idx, cin = 0, STEM_IN
         for blocks, ch in zip(self.stage_blocks, self.channels):
             for _ in range(blocks):
@@ -90,7 +94,6 @@ class VGG16(nn.Module):
         if quant:
             self.dtype = None  # compute dtype, set by the detector
             self.calibrating = False
-            self._packs = {}
             if self.stem:
                 add_scales(self, STEM_SCALES)
 
@@ -119,8 +122,9 @@ class VGG16(nn.Module):
 
     def _stage1_fp(self, x):
         c0, c1 = self.conv0, self.conv1
-        return fused_stem(x, c0.weight, c0.bias, c1.weight, c1.bias,
-                          out_dtype=c0.weight.dtype)
+        weights = (c0.weight, c0.bias, c1.weight, c1.bias)
+        return fused_stem(x, *weights, out_dtype=c0.weight.dtype,
+                          packed=self._packed(pack_stem, *weights))
 
     def _stage1_int8(self, x):
         """Stage 1 of the int8 path (``scan_tpu``'s ``_stage1_s2d`` with
@@ -148,7 +152,7 @@ class VGG16(nn.Module):
         if self.pallas_stem_int8 and static and full:
             x_q, _ = quantize_activation(x, s0)
             out = fused_stem_int8(x_q, k0, b0_raw, k1, b1_raw, s0, s1, s_out,
-                                  packed=self._packed(pack_weights, k0, k1))
+                                  packed=self._packed(pack_stem_int8, k0, k1))
             return QuantizedActivation(out, s_out)
 
         use_s8 = self.stem_s8_epilogue and static
@@ -180,7 +184,7 @@ class VGG16(nn.Module):
         return F.relu(max_pool_2x2(z))
 
     def _packed(self, pack, *weights):
-        """``pack(*weights)`` for K3 or K5, made once per weight version
+        """``pack(*weights)`` for K2, K3 or K5, made once per weight version
         (as ``Conv.quantized_weight`` quantizes once)."""
         key = tuple((w.data_ptr(), w._version) for w in weights)
         if self._packs.get(pack, (None,))[0] != key:

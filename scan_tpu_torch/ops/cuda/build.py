@@ -8,10 +8,11 @@ library with a plain C interface, loaded through ``ctypes``:
 
 No PyTorch headers are included, so a build takes seconds. Libraries go to
 ``build/scan_tpu_torch/`` beside the package (listed in ``.gitignore``), keyed
-by a hash of the source and the flags, so an edited source rebuilds.
+by a hash of the source, the shared headers ``csrc/*.cuh`` and the flags, so
+an edited source or header rebuilds.
 ``--fmad=false`` keeps nvcc from contracting ``a*b + c`` into an FMA: the NMS
 kernel's IoU and the int8 kernels' dequant epilogues must round exactly as
-the plain PyTorch versions do. Division stays IEEE (no fast math). Nothing
+the plain PyTorch versions do. Kernels that want an FMA write ``__fmaf_rn``. Division stays IEEE (no fast math). Nothing
 here runs at import; the first launch builds, and ``build_all`` builds every
 source at once, one ``nvcc`` each, all started together.
 """
@@ -47,9 +48,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    """The library's path, keyed by its source, every ``csrc/*.cuh`` header
+    (any source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -83,6 +88,15 @@ def build_all() -> dict:
     with _lock:
         started = {n: _start(n) for n in SOURCES if n not in _libs}
         return {n: _finish(n, *started[n]) for n in started}
+
+
+def dump_sass(name: str) -> str:
+    """``cuobjdump --dump-sass`` of the built library for ``csrc/<name>.cu``
+    (built first if needed): the instructions the card runs."""
+    load(name)
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "--dump-sass", str(_target(name))],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -16,7 +16,8 @@ clamped at 1e-8:
 Both convs are 3x3 with zero padding 1, so conv1_2 sees zeros outside the
 image. The plain version requantizes, then pools, as the TPU kernel does;
 the CUDA kernel pools the s32 sums, then requantizes once, which gives the
-same bytes (see ``csrc/stem_int8.cu``).
+same bytes (see ``csrc/stem_int8.cu``). Its conv1_2 runs on the tensor
+cores (``csrc/stem_mma.cuh``); s32 sums are exact in any order.
 
 Layout: x_q (B, H, W, 3) s8 NHWC at scale s0; w0 (3, 3, 3, 64) and w1 (3, 3,
 64, 64) HWIO float; returns (B, H/2, W/2, 64) s8 at scale s_out.
@@ -62,17 +63,17 @@ def _lib():
 
 
 def pack_weights(w0, w1):
-    """-> (w0 words (9, 64), w0 scale (64,), w1 words (9, 16, 64), w1 scale
-    (64,)): both kernels quantized per output channel from float32, in
-    int32 words of four input channels: w0 [tap][co] (c0, c1, c2, 0), w1
-    [tap][ci/4][co] (ci .. ci+3)."""
+    """-> (w0 words (9, 64), w0 scale (64,), w1 (64, 9, 64) s8, w1 scale
+    (64,)): both kernels quantized per output channel from float32. w0 in
+    int32 words [tap][co] of the three input channels (c0, c1, c2, 0), for
+    ``__dp4a``; w1 as [co][tap][ci], K contiguous, the tensor cores' B
+    operand."""
     w0_q, w0_s = quantize_weight(w0)
     w1_q, w1_s = quantize_weight(w1)
     w0k = torch.zeros((9, CH, 4), dtype=torch.int8, device=w0.device)
     w0k[..., :3] = w0_q.reshape(9, 3, CH).permute(0, 2, 1)
     w0k = w0k.view(torch.int32).reshape(9, CH)
-    w1k = w1_q.reshape(9, CH // 4, 4, CH).permute(0, 1, 3, 2).contiguous()
-    w1k = w1k.view(torch.int32).reshape(9, CH // 4, CH)
+    w1k = w1_q.permute(3, 0, 1, 2).reshape(CH, 9, CH).contiguous()
     return w0k, w0_s, w1k, w1_s
 
 

@@ -8,6 +8,10 @@ Tolerances: K1's keep masks must be equal. K2 in float32 within atol/rtol
 bfloat16 within rtol 2**-7 (two bf16 ulps) and atol 2**-8 of the largest
 output: a conv1_1 value may round to bf16 on the other side of a tie in the
 two sum orders, which moves an output by well under one ulp of the largest.
+
+K2's bf16 variant and K5 work on tiles of 8 x 16 pooled outputs; the edge
+cases below cover one image, pooled sizes that are not multiples of the
+tile, odd H and W, and a width below one tile.
 """
 
 import numpy as np
@@ -64,9 +68,9 @@ def test_nms_kernel_refuses_k_above_2048(cuda_device):
             torch.ones(1, 2049, dtype=torch.bool, device=cuda_device), None, 0.6)
 
 
-def _stem_data(h, w, seed, device):
+def _stem_data(h, w, seed, device, b=2):
     g = torch.Generator().manual_seed(seed)
-    x = torch.randn(2, h, w, 3, generator=g) * 50
+    x = torch.randn(b, h, w, 3, generator=g) * 50
     w0 = torch.randn(64, 3, 3, 3, generator=g) * 0.1
     b0 = torch.randn(64, generator=g) * 0.1
     w1 = torch.randn(64, 64, 3, 3, generator=g) * 0.05
@@ -91,6 +95,41 @@ def test_stem_kernel_matches_plain(cuda_device, h, w):
                                atol=2 ** -8 * scale)
 
 
+# (B, H, W): one exact tile; pooled H and W off the tile; odd H and W;
+# a pooled width below one tile; a pooled height below one tile, odd
+STEM_EDGES = [(1, 16, 32), (1, 34, 70), (2, 37, 51), (1, 20, 12), (3, 9, 45)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w", STEM_EDGES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stem_kernel_tile_edges(cuda_device, b, h, w, dtype):
+    data = _stem_data(h, w, b * h * w, cuda_device, b=b)
+    packed = stem_kernel.pack_weights(*data[1:], out_dtype=dtype)
+    before = stem_kernel.fused_stem.launches
+    got = stem_kernel.fused_stem(*data, out_dtype=dtype, packed=packed)
+    torch.cuda.synchronize()
+    assert stem_kernel.fused_stem.launches == before + 1
+    want = stem_kernel.reference_stem(*data, out_dtype=dtype)
+    assert got.shape == want.shape == (b, h // 2, w // 2, 64)
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want.contiguous(), atol=1e-4,
+                                   rtol=1e-4)
+    else:
+        scale = want.float().abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=2 ** -8 * scale)
+
+
+@pytest.mark.gpu
+def test_stem_kernel_refuses_a_pack_of_another_dtype(cuda_device):
+    data = _stem_data(8, 8, 0, cuda_device)
+    packed = stem_kernel.pack_weights(*data[1:], out_dtype=torch.float32)
+    with pytest.raises(ValueError):
+        stem_kernel.fused_stem(*data, out_dtype=torch.bfloat16, packed=packed)
+
+
 @pytest.mark.gpu
 def test_stem_kernel_refuses_other_widths(cuda_device):
     x = torch.zeros(1, 8, 8, 3, device=cuda_device)
@@ -107,9 +146,8 @@ def test_stem_kernel_refuses_other_widths(cuda_device):
 # Tolerances: everything on the int8 path must be equal. The s32 sums are
 # exact; every epilogue runs the same float32 steps in the same order, with
 # IEEE division and no FMA contraction, so the plain version on the card
-# gives the same bytes as the kernel. K5 is held to its spec
-# (tests/test_stem_int8_kernel.py): no element off by more than 1 LSB and
-# fewer than 0.1% off by 1; the test also reports that it is exact.
+# gives the same bytes as the kernel. K5 too: its s32 sums are exact in the
+# tensor cores' order, so it must equal its plain version byte for byte.
 
 from scan_tpu_torch.ops import quant  # noqa: E402
 from scan_tpu_torch.ops.cuda import (  # noqa: E402
@@ -210,10 +248,44 @@ def test_stem_int8_kernel_matches_plain(cuda_device, h, w):
     assert stem_int8_kernel.fused_stem_int8.launches == before + 1
     want = stem_int8_kernel.fused_stem_int8_plain(*data)
     assert got.shape == want.shape == (2, h // 2, w // 2, 64)
-    diff = (got.int() - want.int()).abs()
-    assert int(diff.max()) <= 1
-    assert float((diff > 0).float().mean()) < 1e-3
     assert torch.equal(got, want), "expected equal: same steps, same order"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w", STEM_EDGES)
+def test_stem_int8_kernel_tile_edges(cuda_device, b, h, w):
+    data = _int8_stem_data(b, h, w, b + h + w, cuda_device)
+    packed = stem_int8_kernel.pack_weights(data[1], data[3])
+    before = stem_int8_kernel.fused_stem_int8.launches
+    got = stem_int8_kernel.fused_stem_int8(*data, packed=packed)
+    torch.cuda.synchronize()
+    assert stem_int8_kernel.fused_stem_int8.launches == before + 1
+    want = stem_int8_kernel.fused_stem_int8_plain(*data)
+    assert got.shape == want.shape == (b, h // 2, w // 2, 64)
+    assert torch.equal(got, want)
+    assert 0 < int((want != 0).sum()) < want.numel()
+
+
+@pytest.mark.gpu
+def test_stem_int8_kernel_saturates(cuda_device):
+    """All-127 input and large weights: conv1_1 and conv1_2 sums reach the
+    top of s32's useful range and both requants clip at 127 (and at 0 for
+    the channels whose weights are negative)."""
+    b, h, w = 2, 40, 70
+    x_q = torch.full((b, h, w, 3), 127, dtype=torch.int8, device=cuda_device)
+    g = torch.Generator().manual_seed(5)
+    sign = torch.where(torch.rand(64, generator=g) < 0.75, 1.0, -1.0)
+    w0 = (torch.rand(3, 3, 3, 64, generator=g) + 1.0) * 4.0 * sign
+    w1 = (torch.rand(3, 3, 64, 64, generator=g) + 1.0) * 4.0 * sign
+    b0, b1 = torch.full((64,), 3.0), torch.full((64,), -2.0)
+    s = [torch.tensor(v) for v in (0.02, 0.05, 0.01)]
+    data = [t.to(cuda_device) for t in (x_q, w0, b0, w1, b1, *s)]
+    got = stem_int8_kernel.fused_stem_int8(*data)
+    torch.cuda.synchronize()
+    want = stem_int8_kernel.fused_stem_int8_plain(*data)
+    assert torch.equal(got, want)
+    assert int((want == 127).sum()) > want.numel() // 2
+    assert int((want == 0).sum()) > 0
 
 
 @pytest.mark.gpu

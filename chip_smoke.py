@@ -9,12 +9,14 @@ final ``{"ok": true, ...}`` line:
   1. the card's name and power limit (nvidia-smi); build every kernel from
      ``scan_tpu_torch/csrc/*.cu`` (one nvcc each, all started together);
      print each library's registers and spills (ptxas) and its SASS counts
-     of HMMA and IMMA (cuobjdump); fail unless ``stem`` has HMMA (K2's bf16
-     conv1_2) and ``stem_int8`` has IMMA (K5's conv1_2);
+     of HMMA and IMMA (cuobjdump), and for ``conv0`` also of I2F, F2I, FRND,
+     F2F and MUFU (K3's epilogue converts and divides only in its guard
+     band); fail unless ``stem`` has HMMA (K2's bf16 conv1_2) and
+     ``stem_int8`` and ``conv0`` have IMMA (K5's conv1_2, K3's conv);
   2. TF32 off for cuDNN and matmul;
   3. K1 (NMS) against its plain version: sorted synthetic sets, K = 512 and
-     1000, B = 4, with and without labels, invalid rows mixed in; keep
-     masks must be equal;
+     1000, B = 4, without labels and with int64 and int32 labels, invalid
+     rows mixed in; keep masks must be equal;
   4. K2 (fused VGG stem) against its plain version on a normalised 800x1344
      batch with the model's own conv1_1/conv1_2 weights: float32 within
      atol/rtol 1e-4; bfloat16 within rtol 2**-7 and atol 2**-8 of the
@@ -42,8 +44,12 @@ final ``{"ok": true, ...}`` line:
      each variant, and its kernel must have launched and the other int8
      kernels (and K2) not;
  11. timing with CUDA events: each kernel and its plain version at the
-     checks' shapes, cuDNN's conv/relu/conv/relu/maxpool as the fp stem's
-     library call (K2 float32's ratio to it printed), the default int8 chain
+     checks' shapes; K1 and K3 also as their raw launches captured in a
+     CUDA graph (device time without the wrapper's host work), K1 beside
+     its launch floor (empty kernels on the same two grids, timed the same
+     way), both beside PERF.md's times of their earlier designs; cuDNN's
+     conv/relu/conv/relu/maxpool as the fp stem's library call (K2
+     float32's ratio to it printed), the default int8 chain
      (im2col + ``torch._int_mm``) as the yardstick of K3 and K5, K2's
      TFLOP/s and K5's TOP/s, K2 bf16 and K5 without their tensor-core
      conv1_2 (the ``*_probe`` entry points) to split their time, fp and
@@ -60,6 +66,7 @@ import argparse
 import ctypes
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +81,10 @@ PEAK_FP32_S = 67e12  # CUDA cores
 PEAK_BF16_S = 989e12  # tensor cores, dense
 PEAK_INT8_S = 1979e12  # tensor cores, dense
 PAD1 = ((1, 1), (1, 1))
+# PERF.md's times of the designs that K1 and K3 replaced (NVIDIA H100 80GB
+# HBM3, 700.00 W): K1's wrapper at (4, 512), K3 at (4, 800, 1344)
+EARLIER_MS = {"nms_sorted": 0.0794, "conv0_s8": 0.740}
+SASS_OPS = ("HMMA", "IMMA", "I2F", "F2I", "FRND", "F2F", "MUFU")
 # int8 stem variants: the TPU.* switches each sets, and the kernel it runs
 INT8_VARIANTS = {
     "default": ({}, None),
@@ -131,6 +142,24 @@ def cuda_time(fn, iters, warmup=2):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def graph_ms(fn, n=20, reps=10):
+    """Mean ms per call of ``fn``, a raw kernel launch on the current
+    stream, captured ``n`` times in a CUDA graph and replayed ``reps``
+    times: the device's time without the host's."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_time(graph.replay, reps, 1) / n
 
 
 def probe_ms(lib, symbol, n_ptrs, ptrs, b, h, w):
@@ -235,10 +264,13 @@ def main(argv=None):
         sass = {}
         for name in build.SOURCES:
             text = build.dump_sass(name)
-            sass[name] = {op: text.count(f" {op}.") for op in ("HMMA", "IMMA")}
-        s.say("sass_mma_counts", sass)
+            ops = SASS_OPS if name == "conv0" else SASS_OPS[:2]
+            sass[name] = {op: len(re.findall(rf"\b{op}\b", text))
+                          for op in ops}
+        s.say("sass_counts", sass)
         assert sass["stem"]["HMMA"] > 0, "K2 bf16: no HMMA in stem's SASS"
         assert sass["stem_int8"]["IMMA"] > 0, "K5: no IMMA in stem_int8's SASS"
+        assert sass["conv0"]["IMMA"] > 0, "K3: no IMMA in conv0's SASS"
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -260,12 +292,13 @@ def main(argv=None):
     def p_nms():
         for k in (512, 1000):
             boxes, valid, labels = sorted_set(4, k, 8, s.seed + k)
-            for lab in (None, labels):
+            for tag, lab in (("nolabels", None), ("int64_labels", labels),
+                             ("int32_labels", labels.int())):
                 got = nms_kernel.nms_sorted(boxes, valid, lab, 0.6)
                 want = nms_kernel.nms_sorted_plain(boxes, valid, lab, 0.6)
                 torch.cuda.synchronize()
                 n_diff = int((got != want).sum())
-                s.say(f"k1_check_K{k}_{'labels' if lab is not None else 'nolabels'}",
+                s.say(f"k1_check_K{k}_{tag}",
                       f"mismatches={n_diff} kept={int(want.sum())} "
                       f"valid={int(valid.sum())}")
                 if n_diff:
@@ -585,9 +618,35 @@ def main(argv=None):
         kernels = []
         b, v, lab, thr = st["nms_set"]
         bsz, k = v.shape
-        ms = cuda_time(lambda: nms_kernel.nms_sorted(b, v, lab, thr), 200)
+        wrapper = cuda_time(lambda: nms_kernel.nms_sorted(b, v, lab, thr), 200)
         plain = cuda_time(lambda: nms_kernel.nms_sorted_plain(b, v, lab, thr), 3, 1)
-        nbytes = b.numel() * 4 + v.numel() + lab.numel() * 4 + v.numel()
+        # the raw launch on prepared buffers, and the launch floor
+        lib = build.load("nms")
+        words = (k + 63) // 64
+        mask = torch.empty((bsz, k, words), dtype=torch.int64, device=dev)
+        keep = torch.empty((bsz, k), dtype=torch.bool, device=dev)
+        lab_c = lab.contiguous()
+        launch = nms_kernel._lib()
+        empty = lib.scan_nms_empty
+        empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        empty.restype = ctypes.c_int
+
+        def raw():
+            err = launch(b.data_ptr(), v.data_ptr(), lab_c.data_ptr(),
+                         lab_c.element_size(), bsz, k, float(thr), 1,
+                         mask.data_ptr(), keep.data_ptr(),
+                         torch.cuda.current_stream().cuda_stream)
+            assert err == 0, f"nms: CUDA error {err}"
+
+        def floor():
+            err = empty(bsz, k, torch.cuda.current_stream().cuda_stream)
+            assert err == 0, f"nms empty: CUDA error {err}"
+        ms = graph_ms(raw)
+        floor_ms = graph_ms(floor)
+        want = nms_kernel.nms_sorted_plain(b, v, lab, thr)
+        assert torch.equal(keep, want), "K1's graph-timed launch disagrees"
+        nbytes = b.numel() * 4 + v.numel() + lab.numel() * lab.element_size() \
+            + v.numel()
         ops = bsz * k * (k - 1) / 2 * 14  # IoU, compare, label test per pair
         bound = max(nbytes / PEAK_BYTES_S, ops / PEAK_FP32_S) * 1e3
         kernels.append(dict(
@@ -596,9 +655,14 @@ def main(argv=None):
             launches=st["launches"]["nms_sorted"], max_abs_err=0.0, ms=ms,
             plain_ms=plain, bound_ms=bound,
             bound_by="bytes" if nbytes / PEAK_BYTES_S > ops / PEAK_FP32_S
-            else "operations", library_ms=None, shape=f"B={bsz} K={k}"))
-        s.say("time_nms_sorted", f"ms={ms} plain_ms={plain} bound_ms={bound} "
-              f"(B={bsz}, K={k})")
+            else "operations", library_ms=None, shape=f"B={bsz} K={k}",
+            timing="raw launch in a CUDA graph", wrapper_ms=wrapper,
+            launch_floor_ms=floor_ms))
+        s.say("time_nms_sorted",
+              f"graph_ms={ms} wrapper_ms={wrapper} launch_floor_ms={floor_ms} "
+              f"plain_ms={plain} bound_ms={bound} (B={bsz}, K={k}, labels "
+              f"{lab.dtype}); earlier design's wrapper_ms="
+              f"{EARLIER_MS['nms_sorted']} (PERF.md)")
 
         x = st["stem_x"]
         w = st["stem_w"]
@@ -763,9 +827,29 @@ def main(argv=None):
                     library_ms=yard.get("library"),
                     int_mm_chain_ms=yard.get("int_mm_chain"),
                     shape=f"B={bs} {hh}x{ww}"))
+                earlier = (f" earlier design's ms={EARLIER_MS[name]} (PERF.md)"
+                           if name in EARLIER_MS else "")
                 s.say(f"time_{name}", f"ms={ms} plain_ms={pms} "
                       f"bound_ms={bound} {yard} bytes={nbytes} ops={ops} "
-                      f"kernel_TOP/s={ops / ms / 1e9} (B={bs}, {hh}x{ww})")
+                      f"kernel_TOP/s={ops / ms / 1e9} (B={bs}, {hh}x{ww})"
+                      + earlier)
+
+        # K3's raw launch on prepared buffers, captured in a CUDA graph
+        wk, w_s = kw["conv0_s8"]["packed"]
+        k3_args = (w_s, quant.f32(s0, x_q).reshape(()),
+                   b0.float().contiguous(), quant.f32(s1, x_q).reshape(()))
+        k3_out = torch.empty((bs, hh, ww, 64), dtype=torch.int8, device=dev)
+        launch = conv0_kernel._lib()
+
+        def k3_raw():
+            err = launch(x_q.data_ptr(), wk.data_ptr(),
+                         *(t.data_ptr() for t in k3_args), k3_out.data_ptr(),
+                         bs, hh, ww, torch.cuda.current_stream().cuda_stream)
+            assert err == 0, f"conv0: CUDA error {err}"
+        k3 = next(k for k in st["kernels"] if k["name"] == "conv0_s8")
+        k3["graph_ms"] = graph_ms(k3_raw, n=10)
+        assert torch.equal(k3_out, plain["conv0_s8"](*args["conv0_s8"]))
+        s.say("time_conv0_s8_raw_launch_in_graph", f"ms={k3['graph_ms']}")
 
         w0k, w0_s, w1k, w1_s = kw["fused_stem_int8"]["packed"]
         s0c, s1c, soc = (quant.clamp_scale(v, x_q) for v in (s0, s1, s_out))

@@ -6,20 +6,37 @@
 // a bitmask, as in the reference's own nms.cu:
 //
 //   pass 1 (nms_mask_kernel): one block per (column tile, row tile, image),
-//     64 threads; thread r sets bit c of word mask[b][i][tile_c] when row
+//     256 threads; bit c of word mask[b][i][tile_c] is set when row
 //     i = 64*tile_r + r would suppress box j = 64*tile_c + c: IoU > thr,
-//     same label (ML-NMS), both boxes valid, and j > i.
-//   pass 2 (nms_scan_kernel): one warp per image walks the rows in order;
-//     lane w owns word w of the "removed" bitset (K/64 <= 32 words), so a
-//     kept row ORs its mask row into the bitset in one step. Mask rows are
-//     staged in shared memory 64 at a time, so a step waits on no global
-//     load.
+//     same label (ML-NMS), both boxes valid, and j > i. Four threads share
+//     a row, 16 columns each, unrolled, and OR their bits by two shuffles.
+//     Blocks below the diagonal (tile_c < tile_r) write nothing: the scan
+//     never reads them.
+//   pass 2 (nms_scan_kernel): one block per image resolves the rows 64 at a
+//     time. Lane w of warp 0 holds word w of the "removed" bitset in a
+//     register (K/64 <= 32 words). For chunk c:
+//       - every lane walks the chunk's 64 rows redundantly on the diagonal
+//         words mask[64c + r][c], loaded into registers first: a row is kept
+//         when its bit of the chunk's word is clear, and then ORs its
+//         diagonal word in. Invalid rows and rows past K start with their
+//         bit set. A step is a bit test and a predicated OR on one 32-bit
+//         half: no barrier, no shared-memory round trip. The bits left clear
+//         are the chunk's keep flags;
+//       - each lane w > c ORs word w of the chunk's kept rows into its word,
+//         all lanes in parallel;
+//       - the keep flags go out as one coalesced pair of byte stores a lane.
+//     The chunk's mask rows are staged in shared memory by the whole block,
+//     double-buffered: the next chunk's loads are in flight while warp 0
+//     walks this one.
 //
 // What bounds it: neither bytes nor operations. K = 512 boxes are 8 KB and
 // the IoU pairs are ~2 MFLOP per image; the greedy scan is K dependent
-// steps, each as long as its latency. The design keeps each step to
-// shared-memory reads and one 32-lane OR, and runs B images side by side,
-// one warp each.
+// steps, each as long as its latency. A step of the chunked walk is two
+// dependent register operations, with no barrier, no shared-memory round
+// trip and no store; the mask pass gives each thread 16 IoUs, so that
+// their IEEE divisions overlap.
+//
+// Labels are read as int32 or int64, so the caller casts nothing.
 //
 // Exactness: the keep mask must equal XLA's bit for bit. The IoU is computed
 // in the order of scan_tpu.structures.boxes.box_iou, the file is compiled
@@ -31,110 +48,193 @@
 
 namespace {
 
+using u64 = unsigned long long;
+
 constexpr int kTile = 64;
 constexpr int kMaxWords = 32;  // K <= 2048
-constexpr int kScanChunk = 64;  // mask rows staged in shared memory at a time
+constexpr int kMaxK = kTile * kMaxWords;
+constexpr int kMaskThreads = 256;
+constexpr int kScanThreads = 256;
+constexpr int kStagePerThread = kTile * kMaxWords / kScanThreads;  // 8
 
-__global__ void nms_mask_kernel(const float* __restrict__ boxes,
-                                const uint8_t* __restrict__ valid,
-                                const int32_t* __restrict__ labels,
-                                int K, int words, float thr, float off,
-                                unsigned long long* __restrict__ mask) {
+// 256 threads: thread (r, q) = (tid / 4, tid % 4) tests row r against the
+// 16 columns 16q .. 16q + 15; the four partial words of a row are ORed by
+// two shuffles.
+template <typename L>
+__global__ void __launch_bounds__(kMaskThreads)
+nms_mask_kernel(const float* __restrict__ boxes,
+                const uint8_t* __restrict__ valid,
+                const L* __restrict__ labels, int K, int words, float thr,
+                float off, u64* __restrict__ mask) {
   const int tile_c = blockIdx.x;
   const int tile_r = blockIdx.y;
+  if (tile_c < tile_r) return;  // every column precedes every row
   const int b = blockIdx.z;
-  const int r = threadIdx.x;
-  unsigned long long* out =
-      mask + ((size_t)b * K + (size_t)tile_r * kTile + r) * words + tile_c;
+  const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
   const int i = tile_r * kTile + r;
 
-  __shared__ float cb[kTile][4];
-  __shared__ int cl[kTile];
-  __shared__ int cv[kTile];
+  __shared__ float4 cb[kTile];
+  __shared__ L cl[kTile];
+  __shared__ uint8_t cv[kTile];
   const int j0 = tile_c * kTile;
-  const int cols = min(kTile, K - j0);
-  if (r < cols) {
-    const float* bj = boxes + ((size_t)b * K + j0 + r) * 4;
-    cb[r][0] = bj[0];
-    cb[r][1] = bj[1];
-    cb[r][2] = bj[2];
-    cb[r][3] = bj[3];
-    cl[r] = labels ? labels[(size_t)b * K + j0 + r] : 0;
-    cv[r] = valid[(size_t)b * K + j0 + r];
+  if (threadIdx.x < kTile) {
+    const int j = j0 + threadIdx.x;
+    const bool in = j < K;  // columns past K: invalid
+    cb[threadIdx.x] = in ? reinterpret_cast<const float4*>(boxes)[(size_t)b * K + j]
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    cl[threadIdx.x] = in && labels ? labels[(size_t)b * K + j] : L(0);
+    cv[threadIdx.x] = in ? valid[(size_t)b * K + j] : 0;
   }
   __syncthreads();
-  if (i >= K) return;
-  if (tile_c < tile_r) {  // every column precedes every row: no bits
-    *out = 0ull;
-    return;
+  const bool row_in = i < K;
+  const int ic = row_in ? i : K - 1;
+  const float4 bi = reinterpret_cast<const float4*>(boxes)[(size_t)b * K + ic];
+  const float area_i = (bi.z - bi.x + off) * (bi.w - bi.y + off);
+  const L li = labels ? labels[(size_t)b * K + ic] : L(0);
+  const bool vi = row_in && valid[(size_t)b * K + ic] != 0;
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const int c = 16 * q + k;
+    const float4 bj = cb[c];
+    const float area_j = (bj.z - bj.x + off) * (bj.w - bj.y + off);
+    const float w = fmaxf(fminf(bi.z, bj.z) - fmaxf(bi.x, bj.x) + off, 0.f);
+    const float h = fmaxf(fminf(bi.w, bj.w) - fmaxf(bi.y, bj.y) + off, 0.f);
+    const float inter = w * h;
+    const float iou = inter / (area_i + area_j - inter);
+    const bool sup = j0 + c > i && cv[c] && cl[c] == li && iou > thr;
+    bits |= (uint32_t)sup << k;
   }
-  const float* bi = boxes + ((size_t)b * K + i) * 4;
-  const float x1 = bi[0], y1 = bi[1], x2 = bi[2], y2 = bi[3];
-  const float area_i = (x2 - x1 + off) * (y2 - y1 + off);
-  const int li = labels ? labels[(size_t)b * K + i] : 0;
-  const bool vi = valid[(size_t)b * K + i] != 0;
-  unsigned long long bits = 0ull;
-  if (vi) {
-    for (int c = 0; c < cols; ++c) {
-      const int j = j0 + c;
-      if (j <= i || !cv[c] || cl[c] != li) continue;
-      const float area_j =
-          (cb[c][2] - cb[c][0] + off) * (cb[c][3] - cb[c][1] + off);
-      const float w = fmaxf(fminf(x2, cb[c][2]) - fmaxf(x1, cb[c][0]) + off, 0.f);
-      const float h = fmaxf(fminf(y2, cb[c][3]) - fmaxf(y1, cb[c][1]) + off, 0.f);
-      const float inter = w * h;
-      const float iou = inter / (area_i + area_j - inter);
-      if (iou > thr) bits |= 1ull << c;
-    }
-  }
-  *out = bits;
+  u64 word = vi ? (u64)bits << (16 * q) : 0ull;
+  word |= __shfl_xor_sync(0xffffffffu, word, 1);
+  word |= __shfl_xor_sync(0xffffffffu, word, 2);
+  if (row_in && q == 0) mask[((size_t)b * K + i) * words + tile_c] = word;
 }
 
-__global__ void nms_scan_kernel(const uint8_t* __restrict__ valid,
-                                const unsigned long long* __restrict__ mask,
-                                int K, int words, uint8_t* __restrict__ keep) {
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x;
-  __shared__ unsigned long long removed[kMaxWords];
-  __shared__ unsigned long long rows[kScanChunk * kMaxWords];
-  __shared__ uint8_t vs[kScanChunk];
-  if (lane < words) removed[lane] = 0ull;
-  const unsigned long long* m = mask + (size_t)b * K * words;
-  for (int r0 = 0; r0 < K; r0 += kScanChunk) {
-    // stage the chunk's mask rows and valid flags: one coalesced load
-    // instead of a dependent global read on every step of the scan
-    const int n = min(kScanChunk, K - r0);
-    for (int t = lane; t < n * words; t += 32) rows[t] = m[(size_t)r0 * words + t];
-    for (int t = lane; t < n; t += 32) vs[t] = valid[(size_t)b * K + r0 + t];
-    __syncwarp();
-    for (int r = 0; r < n; ++r) {
-      const int i = r0 + r;
-      const bool kept =
-          vs[r] && !((removed[i / kTile] >> (i % kTile)) & 1ull);
-      __syncwarp();
-      if (kept && lane < words) removed[lane] |= rows[r * words + lane];
-      if (lane == 0) keep[(size_t)b * K + i] = kept ? 1 : 0;
-      __syncwarp();
-    }
+// Load chunk c's mask rows (64 x words, rows past K skipped) into registers.
+__device__ __forceinline__ void load_chunk(const u64* m, int c, int K,
+                                           int words,
+                                           u64 (&v)[kStagePerThread]) {
+  const int n = min(kTile, K - c * kTile) * words;
+#pragma unroll
+  for (int k = 0; k < kStagePerThread; ++k) {
+    const int q = threadIdx.x + k * kScanThreads;
+    if (q < n) v[k] = m[(size_t)c * kTile * words + q];
   }
 }
+
+__device__ __forceinline__ void store_chunk(u64* rows, int c, int K,
+                                            int words,
+                                            const u64 (&v)[kStagePerThread]) {
+  const int n = min(kTile, K - c * kTile) * words;
+#pragma unroll
+  for (int k = 0; k < kStagePerThread; ++k) {
+    const int q = threadIdx.x + k * kScanThreads;
+    if (q < n) rows[q] = v[k];
+  }
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+nms_scan_kernel(const uint8_t* __restrict__ valid, const u64* __restrict__ mask,
+                int K, int words, uint8_t* __restrict__ keep) {
+  __shared__ u64 rows[2][kTile * kMaxWords];
+  __shared__ uint8_t vs[kMaxK];
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const bool scanner = threadIdx.x < 32;
+  const u64* m = mask + (size_t)b * K * words;
+  const uint8_t* vb = valid + (size_t)b * K;
+  uint8_t* kb = keep + (size_t)b * K;
+
+  u64 v[kStagePerThread];
+  load_chunk(m, 0, K, words, v);
+  for (int i = threadIdx.x; i < K; i += kScanThreads) vs[i] = vb[i];
+  store_chunk(rows[0], 0, K, words, v);
+  __syncthreads();
+
+  u64 removed = 0ull;  // word `lane` of the bitset (lanes < words)
+  for (int c = 0; c < words; ++c) {
+    const bool more = c + 1 < words;
+    if (more) load_chunk(m, c + 1, K, words, v);
+    if (scanner) {
+      const int i0 = c * kTile;
+      const u64* rc = rows[c & 1];
+      // valid rows of the chunk (rows past K are not valid)
+      const bool v_lo = i0 + lane < K && vs[i0 + lane];
+      const bool v_hi = i0 + 32 + lane < K && vs[i0 + 32 + lane];
+      const u64 vword = (u64)__ballot_sync(0xffffffffu, v_lo) |
+                        ((u64)__ballot_sync(0xffffffffu, v_hi) << 32);
+      const u64 cur = __shfl_sync(0xffffffffu, removed, c) | ~vword;
+      // The walk, in two 32-bit halves: a row's bits are all above it, so
+      // rows 32..63 touch only the upper half. The diagonal words are
+      // loaded first; a step is then a bit test and a predicated OR.
+      uint32_t dlo[32], dhi[kTile];
+#pragma unroll
+      for (int r = 0; r < kTile; ++r) {
+        const u64 d = rc[r * words + c];
+        if (r < 32) dlo[r] = (uint32_t)d;
+        dhi[r] = (uint32_t)(d >> 32);
+      }
+      uint32_t lo = (uint32_t)cur, hi = (uint32_t)(cur >> 32);
+#pragma unroll
+      for (int r = 0; r < 32; ++r)
+        if (!((lo >> r) & 1u)) {
+          lo |= dlo[r];
+          hi |= dhi[r];
+        }
+#pragma unroll
+      for (int r = 32; r < kTile; ++r)
+        if (!((hi >> (r - 32)) & 1u)) hi |= dhi[r];
+      const u64 kept = ~((u64)hi << 32 | lo);
+      if (lane > c && lane < words) {
+#pragma unroll
+        for (int r = 0; r < kTile; ++r)
+          removed |= rc[r * words + lane] & (0ull - ((kept >> r) & 1ull));
+      }
+      if (i0 + lane < K) kb[i0 + lane] = (uint8_t)((kept >> lane) & 1ull);
+      if (i0 + 32 + lane < K)
+        kb[i0 + 32 + lane] = (uint8_t)((kept >> (32 + lane)) & 1ull);
+    }
+    if (more) store_chunk(rows[(c + 1) & 1], c + 1, K, words, v);
+    __syncthreads();
+  }
+}
+
+__global__ void empty_kernel() {}
 
 }  // namespace
 
+// labels: (B, K) int32 (label_bytes 4), int64 (8), or null (0).
 extern "C" int scan_nms_sorted(const float* boxes, const uint8_t* valid,
-                               const int32_t* labels, int B, int K,
-                               float iou_threshold, int plus_one,
-                               unsigned long long* mask, uint8_t* keep,
-                               cudaStream_t stream) {
+                               const void* labels, int label_bytes, int B,
+                               int K, float iou_threshold, int plus_one,
+                               u64* mask, uint8_t* keep, cudaStream_t stream) {
   if (B <= 0 || K <= 0) return 0;
   const int words = (K + kTile - 1) / kTile;
   if (words > kMaxWords) return (int)cudaErrorInvalidValue;
   const float off = plus_one ? 1.f : 0.f;
   dim3 grid1(words, words, B);
-  nms_mask_kernel<<<grid1, kTile, 0, stream>>>(boxes, valid, labels, K, words,
-                                               iou_threshold, off, mask);
+  if (labels == nullptr || label_bytes == 4)
+    nms_mask_kernel<int32_t><<<grid1, kMaskThreads, 0, stream>>>(
+        boxes, valid, static_cast<const int32_t*>(labels), K, words,
+        iou_threshold, off, mask);
+  else if (label_bytes == 8)
+    nms_mask_kernel<long long><<<grid1, kMaskThreads, 0, stream>>>(
+        boxes, valid, static_cast<const long long*>(labels), K, words,
+        iou_threshold, off, mask);
+  else
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  nms_scan_kernel<<<B, 32, 0, stream>>>(valid, mask, K, words, keep);
+  nms_scan_kernel<<<B, kScanThreads, 0, stream>>>(valid, mask, K, words, keep);
+  return (int)cudaGetLastError();
+}
+
+// The launch floor of scan_nms_sorted: empty kernels on the same two grids.
+extern "C" int scan_nms_empty(int B, int K, cudaStream_t stream) {
+  if (B <= 0 || K <= 0) return 0;
+  const int words = (K + kTile - 1) / kTile;
+  empty_kernel<<<dim3(words, words, B), kMaskThreads, 0, stream>>>();
+  empty_kernel<<<B, kScanThreads, 0, stream>>>();
   return (int)cudaGetLastError();
 }

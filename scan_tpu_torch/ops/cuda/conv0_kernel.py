@@ -18,13 +18,23 @@ as ``quantize_activation`` clamps a static scale.
 
 ``pack_weight`` quantizes w0 and lays it out for the kernel; a caller that
 runs the kernel many times on one weight packs it once and passes it in.
+
+The kernel runs the conv on the tensor cores and its epilogue without a
+division: it multiplies by r = 1 / s1 (correctly rounded, as
+``torch.reciprocal`` gives it). Each block first tries the 1,280 bf16
+values that can give a byte other than 0 or 127 at this s1 against the
+division; where one disagrees (1 of 2,000 seeded scales, and round ones
+such as 7.0 or 0.9 more often), a second, guarded kernel
+does the launch and divides wherever a product lies within 2**-14 of a
+half-integer. ``csrc/conv0.cu`` says why that is exact;
+``tests/test_torch_conv0_mma.py`` proves it on the CPU.
 """
 
 import ctypes
 
 import torch
 
-from ..quant import clamp_scale, conv_s32, prepare_weight, quantize_weight
+from ..quant import clamp_scale, conv_s32, f32, prepare_weight, quantize_weight
 from . import build
 
 CH = 64
@@ -43,20 +53,21 @@ def conv0_s8_plain(x_q, w0, b0, s0, s1):
 def _lib():
     fn = build.load("conv0").scan_conv0_s8
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def pack_weight(w0):
-    """w0 (3, 3, 3, 64) float HWIO -> (words (9, 64) int32, w_scale (64,)
-    f32): quantized per output channel from float32, one word per (tap, out
-    channel) holding the bytes (w_c0, w_c1, w_c2, 0)."""
+    """w0 (3, 3, 3, 64) float HWIO -> (words (64, 16) int32, w_scale (64,)
+    f32): quantized per output channel from float32. Row co holds the GEMM's
+    K = 64 bytes of that channel: word 4 ky + kx is the bytes (w_c0, w_c1,
+    w_c2, 0) of tap (ky, kx); the words with kx = 3 or ky = 3 are zero."""
     w_q, w_scale = quantize_weight(w0)
-    wk = torch.zeros((9, CH, 4), dtype=torch.int8, device=w0.device)
-    wk[..., :3] = w_q.reshape(9, 3, CH).permute(0, 2, 1)
-    return wk.view(torch.int32).reshape(9, CH), w_scale
+    wk = torch.zeros((CH, 4, 4, 4), dtype=torch.int8, device=w0.device)
+    wk[:, :3, :3, :3] = w_q.permute(3, 0, 1, 2)
+    return wk.view(torch.int32).reshape(CH, 16), w_scale
 
 
 def conv0_s8(x_q, w0, b0, s0, s1, packed=None):
@@ -75,9 +86,10 @@ def conv0_s8(x_q, w0, b0, s0, s1, packed=None):
     if tuple(w0.shape) != (3, 3, 3, CH) or tuple(b0.shape) != (CH,):
         raise ValueError(f"conv0_s8: the kernel takes the full-width conv1_1 "
                          f"(w0 (3, 3, 3, 64)); got {tuple(w0.shape)}")
-    s0, s1 = clamp_scale(s0, x_q), clamp_scale(s1, x_q)
+    # the kernel floors s0 and s1 at 1e-8 and forms s0 * w_scale and 1 / s1
+    # itself: a device float32 scalar passes with no copy and no launch
+    s0, s1 = f32(s0, x_q).reshape(()), f32(s1, x_q).reshape(())
     wk, w_scale = pack_weight(w0) if packed is None else packed
-    scale = w_scale * s0
     bias = b0.float().contiguous()
     x_q = x_q.contiguous()
     b, h, w, _ = x_q.shape
@@ -85,8 +97,9 @@ def conv0_s8(x_q, w0, b0, s0, s1, packed=None):
     if out.numel() == 0:
         return out
     with torch.cuda.device(x_q.device):
-        err = _lib()(x_q.data_ptr(), wk.data_ptr(), scale.data_ptr(),
-                     bias.data_ptr(), s1.data_ptr(), out.data_ptr(), b, h, w,
+        err = _lib()(x_q.data_ptr(), wk.data_ptr(), w_scale.data_ptr(),
+                     s0.data_ptr(), bias.data_ptr(), s1.data_ptr(),
+                     out.data_ptr(), b, h, w,
                      torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv0_s8 launch failed: CUDA error {err}")

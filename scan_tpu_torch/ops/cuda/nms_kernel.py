@@ -7,6 +7,7 @@ other. The source note in ``csrc/nms.cu`` says what bounds the kernel and
 how its bitmask design answers it.
 """
 
+import contextlib
 import ctypes
 
 import torch
@@ -46,11 +47,18 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _on(device):
+    """The device's context, or none when it is already the current one."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def nms_sorted(boxes, valid, labels, iou_threshold: float,
@@ -59,7 +67,8 @@ def nms_sorted(boxes, valid, labels, iou_threshold: float,
 
     boxes (B, K, 4) f32; valid (B, K) bool; labels (B, K) int or None.
     Returns keep (B, K) bool in the sorted order. CPU tensors take the plain
-    version; CUDA tensors launch kernel K1 or raise.
+    version; CUDA tensors launch kernel K1 or raise. Labels of int32 or
+    int64 go to the kernel as they are.
     """
     if boxes.device.type == "cpu":
         return nms_sorted_plain(boxes, valid, labels, iou_threshold, plus_one)
@@ -75,20 +84,26 @@ def nms_sorted(boxes, valid, labels, iou_threshold: float,
         raise ValueError(f"nms_sorted: K={k} exceeds {MAX_K}")
     boxes = boxes.contiguous()
     valid = valid.contiguous()
+    label_bytes = 0
     if labels is not None:
         if labels.shape != (b, k):
             raise ValueError("nms_sorted: labels must be (B, K)")
-        labels = labels.to(torch.int32).contiguous()
+        if labels.dtype not in (torch.int32, torch.int64):
+            labels = labels.to(torch.int32)
+        labels = labels.contiguous()
+        label_bytes = labels.element_size()
+    # one allocation: the (B, K, words) bitmask, then the (B, K) keep flags
     words = (k + 63) // 64
-    mask = torch.empty((b, k, words), dtype=torch.int64, device=boxes.device)
-    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
+    buf = torch.empty(b * k * (8 * words + 1), dtype=torch.uint8,
+                      device=boxes.device)
+    keep = buf[b * k * 8 * words:].view(torch.bool).view(b, k)
     if b == 0 or k == 0:
         return keep
-    with torch.cuda.device(boxes.device):
+    with _on(boxes.device):
         err = _lib()(
             boxes.data_ptr(), valid.data_ptr(),
-            labels.data_ptr() if labels is not None else None,
-            b, k, float(iou_threshold), int(plus_one), mask.data_ptr(),
+            labels.data_ptr() if labels is not None else None, label_bytes,
+            b, k, float(iou_threshold), int(plus_one), buf.data_ptr(),
             keep.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

@@ -3,7 +3,7 @@ the card. A CUDA kernel has no CPU mode, so every test here is marked
 ``gpu`` and skips without a card. This file imports no JAX, so it runs on
 the machine with the card: ``python -m pytest tests/test_torch_kernels.py -m gpu``.
 
-Tolerances: K1's keep masks must be equal. K2 in float32 within atol/rtol
+Tolerances: K1's keep masks must be equal, and K3-K6's bytes. K2 in float32 within atol/rtol
 1e-4 of the plain version with TF32 off (float32 sums in another order); in
 bfloat16 within rtol 2**-7 (two bf16 ulps) and atol 2**-8 of the largest
 output: a conv1_1 value may round to bf16 on the other side of a tie in the
@@ -46,18 +46,47 @@ def _sorted_case(seed, b, k, n_labels, invalid_frac, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [512, 1000, 2048])
-@pytest.mark.parametrize("use_labels", [False, True])
-def test_nms_kernel_matches_plain(cuda_device, k, use_labels):
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 512, 1000, 2048])
+@pytest.mark.parametrize("label_dtype", [None, torch.int32, torch.int64])
+def test_nms_kernel_matches_plain(cuda_device, k, label_dtype):
+    """K1's chunked scan resolves 64 rows at a time: K below, at and past
+    one chunk, and the largest K (32 words). Labels of int32 and int64 go
+    to the kernel uncast."""
     boxes, valid, labels = _sorted_case(k, 4, k, 8, 0.25, cuda_device)
-    labels = labels if use_labels else None
+    labels = None if label_dtype is None else labels.to(label_dtype)
     before = nms_kernel.nms_sorted.launches
     got = nms_kernel.nms_sorted(boxes, valid, labels, 0.6)
     torch.cuda.synchronize()
     assert nms_kernel.nms_sorted.launches == before + 1
     want = nms_kernel.nms_sorted_plain(boxes, valid, labels, 0.6)
     assert torch.equal(got, want)
-    assert 0 < int(want.sum()) < int(valid.sum())
+    if k >= 512:
+        assert 0 < int(want.sum()) < int(valid.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [64, 1000])
+@pytest.mark.parametrize("case", ["all_invalid", "all_overlapping"])
+def test_nms_kernel_degenerate_sets(cuda_device, k, case):
+    """No valid row (nothing kept), and one box repeated (only the first
+    valid row of each label kept)."""
+    boxes, valid, labels = _sorted_case(k + 1, 2, k, 3, 0.25, cuda_device)
+    if case == "all_invalid":
+        valid = torch.zeros_like(valid)
+    else:
+        boxes = torch.tensor([10.0, 20.0, 60.0, 90.0],
+                             device=cuda_device).expand(2, k, 4).contiguous()
+    for lab in (None, labels):
+        before = nms_kernel.nms_sorted.launches
+        got = nms_kernel.nms_sorted(boxes, valid, lab, 0.6)
+        torch.cuda.synchronize()
+        assert nms_kernel.nms_sorted.launches == before + 1
+        want = nms_kernel.nms_sorted_plain(boxes, valid, lab, 0.6)
+        assert torch.equal(got, want)
+        if case == "all_invalid":
+            assert not want.any()
+        else:
+            assert int(want.sum()) == 2 * (1 if lab is None else 3)
 
 
 @pytest.mark.gpu
@@ -197,6 +226,52 @@ def test_conv0_kernel_matches_plain(cuda_device, h, w):
     assert got.shape == (2, h, w, 64) and got.dtype == torch.int8
     assert torch.equal(got, want)
     assert 0 < int((want != 0).sum()) < want.numel()
+
+
+# K3 works on tiles of 4 rows x 128 columns, eight m16 tiles of 16 pixels a
+# row: (B, H, W, s1) with H and W off the tile, W below one m16 tile, one
+# and eight images, a tiny s1 (most outputs saturate at 127), s1 = 2**-5,
+# which puts many quotients y / s1 on exact half-integers, and an s1 at
+# which the division-free path needs its guard band (the kernel then
+# divides where a product lies within 2**-14 of a half-integer).
+CONV0_EDGES = [(1, 4, 128, 0.09), (2, 13, 200, 0.09), (1, 5, 9, 0.09),
+               (3, 17, 15, 0.09), (8, 24, 130, 0.09), (2, 40, 70, 1e-4),
+               (2, 40, 70, 2.0 ** -5), (2, 40, 70, 0.0099051333963871)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,s1", CONV0_EDGES)
+def test_conv0_kernel_tile_edges(cuda_device, b, h, w, s1):
+    x_q, w0, b0, _, _, s0, _, _ = _int8_stem_data(b, h, w, b + h * w,
+                                                  cuda_device)
+    s1 = torch.tensor(s1, device=cuda_device)
+    packed = conv0_kernel.pack_weight(w0)
+    before = conv0_kernel.conv0_s8.launches
+    got = conv0_kernel.conv0_s8(x_q, w0, b0, s0, s1, packed=packed)
+    torch.cuda.synchronize()
+    assert conv0_kernel.conv0_s8.launches == before + 1
+    want = conv0_kernel.conv0_s8_plain(x_q, w0, b0, s0, s1)
+    assert got.shape == want.shape == (b, h, w, 64)
+    assert torch.equal(got, want)
+    if float(s1) < 1e-3:
+        assert int((want == 127).sum()) > want.numel() // 4
+    else:
+        assert 0 < int((want != 0).sum()) < want.numel()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bias_mul,s1", [(1.0, 1e32), (1e35, 1e32),
+                                         (1e35, 0.09), (1.0, 1e-9)])
+def test_conv0_kernel_extreme_scales(cuda_device, bias_mul, s1):
+    """Scales outside the common path's range (r = 1 / s1 below 2**-100, a
+    bias above 2**100) go the exact way, and s1 below its floor of 1e-8 is
+    clamped: all equal the plain version."""
+    x_q, w0, b0, _, _, s0, _, _ = _int8_stem_data(2, 9, 40, 7, cuda_device)
+    s1 = torch.tensor(s1, device=cuda_device)
+    b0 = b0 * bias_mul
+    got = conv0_kernel.conv0_s8(x_q, w0, b0, s0, s1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, conv0_kernel.conv0_s8_plain(x_q, w0, b0, s0, s1))
 
 
 @pytest.mark.gpu

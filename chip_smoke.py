@@ -55,7 +55,30 @@ final ``{"ok": true, ...}`` line:
      conv1_2 (the ``*_probe`` entry points) to split their time, fp and
      int8 forward img/s at bfloat16,
      precision, batch 8 (int8 for each stem variant), and both forwards cut
-     at their layers.
+     at their layers;
+ 12. ``train_small_card_vs_cpu``: one DA step (``make_da_train_step``) of
+     the full-width C2F model at 128x192, batch 2 + 2, float32, TF32 off,
+     in each ``forward_target`` variant, on the card (K2 on the frozen stem)
+     and on the CPU from the same seeded weights and batches: source and
+     target node masks and labels equal, DBSCAN keep masks equal, the
+     metrics within rtol 1e-4 and every parameter update within the bound
+     stated in ``p_train_small``;
+ 13. ``train_main_path_full_width``: the DA step at C2F's full width, batch
+     4 + 4 at 800x1344, float32, seeded weights and batches with GT boxes,
+     dropout on: three steps with ``forward_target`` False and three with
+     True (the counters zeroed before and read after: K2 twice a step, no
+     other kernel), then one step of each variant under
+     ``torch.cuda.set_sync_debug_mode("error")``; every loss finite, the
+     trained parameters moved and the frozen ones not, the prototype
+     counter and values advanced; peak device memory;
+ 14. ``train_loop_with_validation``: ``do_train_da`` for 4 iterations with
+     SOLVER.VAL_ITER 2 and a seeded validation set of 4 images at 800x1344
+     (COCO AP through ``engine/inference.py::inference``): K1 and K2 launch
+     in each validation, K2 twice a training step; AP50 printed;
+ 15. ``train_timing``: ms per DA step and img/s (source + target) in each
+     variant, CUDA events after warm-up; the step split into G source, D
+     source, G target, D target, backward and optimizer;
+     ``sample_target_nodes`` alone at full width.
 
 Every number is printed with the card's name and power limit; everything is
 also written to ``chiprun_out/chip_smoke.json``. The line before the last is
@@ -65,7 +88,9 @@ the per-kernel JSON; the last line is the device JSON.
 import argparse
 import ctypes
 import dataclasses
+import itertools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -877,6 +902,357 @@ def main(argv=None):
         time_parts("int8_default", det, im, sizes,
                    lambda x: det.backbone.body._stage1_int8(x))
 
+    # ---- 12-15: the DA training step ------------------------------------
+    from scan_tpu_torch.engine import inference as inference_mod
+    from scan_tpu_torch.engine import trainer
+    from scan_tpu_torch.engine.train_step import make_da_train_step
+    from scan_tpu_torch.modeling.condgraph import module as cg_mod
+    from scan_tpu_torch.modeling.condgraph import sampling
+    from scan_tpu_torch.solver.build import make_lr_scheduler, make_optimizer
+
+    def train_setup(cfg, device):
+        det = build_detector(cfg, device=device, seed=s.seed)
+        opt = make_optimizer(cfg, det)
+        sched = make_lr_scheduler(cfg, opt)
+        return det, opt, sched, make_da_train_step(det, opt, sched)
+
+    def train_batches(b, h, w, seed, device, n_boxes=8, k=5):
+        """Seeded uint8 source and target batches, k GT boxes an image
+        (16 px to 30% of the image a side) in ``n_boxes`` slots."""
+        g = torch.Generator().manual_seed(seed)
+        ims = torch.randint(0, 256, (2, b, h, w, 3), generator=g,
+                            dtype=torch.uint8)
+        xy = torch.rand(b, k, 2, generator=g) * torch.tensor([w * 0.7, h * 0.7])
+        wh = torch.rand(b, k, 2, generator=g) * torch.tensor([w * 0.3, h * 0.3])
+        boxes = torch.zeros(b, n_boxes, 4)
+        boxes[:, :k] = torch.cat([xy, xy + wh + 16], -1)
+        labels = torch.zeros(b, n_boxes, dtype=torch.int32)
+        labels[:, :k] = torch.randint(1, 9, (b, k), generator=g,
+                                      dtype=torch.int32)
+        mask = torch.zeros(b, n_boxes, dtype=torch.bool)
+        mask[:, :k] = True
+        bs = dict(images=ims[0], sizes=torch.tensor([[h, w]] * b,
+                                                    dtype=torch.int32),
+                  boxes=boxes, labels=labels, mask=mask)
+        on = lambda d: {k_: v.to(device) for k_, v in d.items()}  # noqa: E731
+        return on(bs), on(dict(images=ims[1]))
+
+    def delta_bound(got, want, rel_tensor, rel_all):
+        """max over tensors of |got - want| / (rel_tensor * max|want| of
+        the tensor + rel_all * max|want| of all): <= 1 passes."""
+        scale = max(float(d.abs().max()) for d in want.values())
+        return max((float((got[k] - want[k]).abs().max())
+                    / (rel_tensor * float(want[k].abs().max())
+                       + rel_all * scale), k) for k in want)
+
+    def p_train_small():
+        """Card against CPU, one DA step per variant, 128x192, batch 2 + 2,
+        float32, TF32 off, every BASE_LR 0.1. Discrete choices must be
+        equal: the source and target node masks and labels, and DBSCAN's
+        keep masks. The metrics within rtol 1e-4. A parameter update
+        within 2e-3 of its tensor's largest plus 2e-3 of the whole update's
+        largest: the card's convolutions sum in other orders than the
+        CPU's, and at this size a ReLU input within rounding of 0 falls on
+        either side somewhere in VGG's stage 3 (~8e5 elements), which moves
+        the update of the conv above it by up to ~6e-4 of its scale on an
+        H100 (the CPU tests hold the port against scan_tpu at 1e-4 + 1e-4
+        on a smaller input)."""
+        cfg = c2f("float32")
+        cfg.TPU.MAX_NODES, cfg.TPU.MAX_TARGET_POINTS = 64, 64
+        cfg.TPU.MAX_BOXES = 8
+        for key in ("BACKBONE", "MIDDLE_HEAD", "FCOS", "DIS"):
+            cfg.SOLVER[key].BASE_LR = 0.1
+        record = []
+        real = (cg_mod.sample_source_nodes, cg_mod.sample_target_nodes,
+                sampling.density_cluster_drop_first)
+
+        def rec(tag, fn):
+            def wrapped(*a, **k):
+                out = fn(*a, **k)
+                outs = out if isinstance(out, tuple) else (out,)
+                record.append((tag, [o.detach().cpu() for o in outs[1:3]]
+                               if tag != "keep" else [outs[0].cpu()]))
+                return out
+            return wrapped
+
+        cg_mod.sample_source_nodes = rec("source", real[0])
+        cg_mod.sample_target_nodes = rec("target", real[1])
+        sampling.density_cluster_drop_first = rec("keep", real[2])
+        try:
+            for ft in (False, True):
+                runs = {}
+                for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+                    det, _, _, step = train_setup(cfg, device)
+                    bs, bt = train_batches(2, 128, 192, s.seed + 5, device)
+                    before = {k: p.detach().clone()
+                              for k, p in det.named_parameters()}
+                    record.clear()
+                    _, metrics = step(det.proto_state(), bs, bt,
+                                      forward_target=ft)
+                    runs[name] = (
+                        {k: float(v) for k, v in metrics.items()},
+                        {k: (p.detach() - before[k]).cpu()
+                         for k, p in det.named_parameters()},
+                        list(record))
+                    del det, step
+                (mc, dc, rc), (mw, dw, rw) = runs["card"], runs["cpu"]
+                assert [t for t, _ in rc] == [t for t, _ in rw]
+                for (tag, a), (_, b) in zip(rc, rw):
+                    for x, y in zip(a, b):
+                        assert torch.equal(x, y), f"{tag} differs (ft={ft})"
+                n_keep = sum(int(a[0].sum()) for t, a in rw if t == "keep")
+                worst_m = max(abs(mc[k] - mw[k]) / max(abs(mw[k]), 1e-12)
+                              for k in mw)
+                ratio, where = delta_bound(dc, dw, 2e-3, 2e-3)
+                s.say(f"train_small_ft{int(ft)}",
+                      f"metrics={len(mw)} worst_rel={worst_m} "
+                      f"loss_total card/cpu={mc['loss_total']}/"
+                      f"{mw['loss_total']} transfer card/cpu="
+                      f"{mc.get('transfer_loss_gt')}/{mw.get('transfer_loss_gt')}"
+                      f" nodes equal in "
+                      f"{sum(t != 'keep' for t, _ in rw)} samplings, "
+                      f"dbscan keep equal in {sum(t == 'keep' for t, _ in rw)}"
+                      f" calls ({n_keep} kept); update bound ratio={ratio} "
+                      f"at {where}")
+                assert set(mc) == set(mw) and worst_m <= 1e-4, worst_m
+                assert ratio <= 1.0, (ratio, where)
+                assert ("transfer_loss_gt" in mw) == ft
+        finally:
+            (cg_mod.sample_source_nodes, cg_mod.sample_target_nodes,
+             sampling.density_cluster_drop_first) = real
+
+    def p_train_main():
+        for key in ("dets", "int8_dets", "int8_det"):  # free the card
+            st.pop(key, None)
+        torch.cuda.empty_cache()
+        cfg = c2f("float32")
+        det, opt, sched, step = train_setup(cfg, dev)
+        batches = [train_batches(4, H, W, s.seed + 10 + i, dev, n_boxes=100)
+                   for i in range(2)]
+        frozen = {k for k, p in det.named_parameters() if not p.requires_grad}
+        start = {k: p.detach().clone() for k, p in det.named_parameters()}
+        proto0 = det.prototype.clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        proto = det.proto_state()
+        variants = (False,) * 3 + (True,) * 3
+        real_target = cg_mod.sample_target_nodes
+        real_dbscan = sampling.density_cluster_drop_first
+        target_nodes, dbscan = [], []
+
+        def counting(*a, **k):
+            out = real_target(*a, **k)
+            target_nodes.append(out[2].sum())
+            return out
+
+        def counting_dbscan(points, valid, *a, **k):
+            keep = real_dbscan(points, valid, *a, **k)
+            dbscan.append(torch.stack([valid.sum(), keep.sum()]))
+            return keep
+
+        cg_mod.sample_target_nodes = counting
+        sampling.density_cluster_drop_first = counting_dbscan
+        try:
+            for i, ft in enumerate(variants):
+                gen = torch.Generator(device=dev).manual_seed(1000 + i)
+                proto, metrics = step(proto, *batches[i % 2],
+                                      forward_target=ft, generator=gen)
+                host = {k: float(v) for k, v in metrics.items()}
+                s.say(f"train_step{i}_ft{int(ft)}",
+                      " ".join(f"{k}={v:.6g}" for k, v in host.items()))
+                bad = {k: v for k, v in host.items() if not math.isfinite(v)}
+                assert not bad, bad
+                assert ("transfer_loss_gt" in host) == ft
+        finally:
+            cg_mod.sample_target_nodes = real_target
+            sampling.density_cluster_drop_first = real_dbscan
+        # with seeded random weights the act maps are near-uniform, and at
+        # this size DBSCAN may put every candidate in one component, which
+        # it drops: then no target node, and the GST gate is 0
+        s.say("train_target_nodes_valid", [int(n) for n in target_nodes])
+        s.say("train_dbscan_candidates_kept",
+              [tuple(int(v) for v in c) for c in dbscan])
+        torch.cuda.synchronize()
+        launched = counts()
+        s.say("train_main_launches", launched)
+        assert launched["vgg_stem_fused"] == 2 * len(variants), launched
+        assert not any(v for k, v in launched.items() if k != "vgg_stem_fused")
+        for ft in (False, True):  # no host round trip inside a step
+            gen = torch.Generator(device=dev).manual_seed(2000 + ft)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                proto, metrics = step(proto, *batches[0], forward_target=ft,
+                                      generator=gen)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            s.say(f"train_sync_free_ft{int(ft)}",
+                  f"loss_total={float(metrics['loss_total'])}")
+        moved = {k for k, p in det.named_parameters()
+                 if not torch.equal(p.detach(), start[k])}
+        trainable = set(start) - frozen
+        s.say("train_params", f"trainable={len(trainable)} moved="
+              f"{len(moved & trainable)} frozen={len(frozen)} "
+              f"frozen_moved={len(moved & frozen)} counter={int(proto.counter)} "
+              f"proto_max_change={float((proto.prototype - proto0).abs().max())}")
+        assert moved == trainable, sorted(trainable - moved)[:5]
+        assert frozen == {f"backbone.body.conv{i}.{t}" for i in range(4)
+                          for t in ("weight", "bias")}
+        assert int(proto.counter) == cfg.MODEL.MIDDLE_HEAD.PROTO_ITER
+        assert float((proto.prototype - proto0).abs().max()) > 0
+        s.say("train_peak_mem_gib", torch.cuda.max_memory_allocated() / 2 ** 30)
+        st["train"] = (cfg, det, opt, sched, step, batches)
+        st["train_launches"] = launched
+
+    class ValSet:
+        """A COCO-style validation set of seeded GT boxes, with the
+        ``COCODataset`` API the evaluator reads."""
+
+        def __init__(self, n, seed):
+            g = torch.Generator().manual_seed(seed)
+            self.images = torch.randint(0, 256, (n, H, W, 3), generator=g,
+                                        dtype=torch.uint8).numpy()
+            self.id_to_img_map = {i: 100 + i for i in range(n)}
+            self.contiguous_category_id_to_json_id = {c: c for c in range(1, 9)}
+            anns = {}
+            for i in range(n):
+                xy = torch.rand(6, 2, generator=g) * torch.tensor([W * 0.7, H * 0.7])
+                wh = torch.rand(6, 2, generator=g) * 200 + 20
+                cat = torch.randint(1, 9, (6,), generator=g)
+                anns[100 + i] = [dict(bbox=[*map(float, p), *map(float, q)],
+                                      category_id=int(c), iscrowd=0,
+                                      area=float(q[0] * q[1]))
+                                 for p, q, c in zip(xy, wh, cat)]
+            self.coco = type("Coco", (), dict(
+                img_to_anns=anns, get_cat_ids=lambda _self: list(range(1, 9))))()
+
+        def __len__(self):
+            return len(self.images)
+
+    class ValLoader:
+        def __init__(self, dataset, batch):
+            self.dataset, self.batch = dataset, batch
+
+        def __iter__(self):
+            for i in range(0, len(self.dataset), self.batch):
+                n = min(self.batch, len(self.dataset) - i)
+                yield dict(images=self.dataset.images[i:i + n],
+                           sizes=np.asarray([[H, W]] * n, np.int32),
+                           scales=np.ones((n, 2), np.float32),
+                           indices=np.arange(i, i + n))
+
+    def p_train_loop():
+        cfg, det, _, _, step, batches = st["train"]
+        cfg = cfg.clone()
+        cfg.SOLVER.MAX_ITER, cfg.SOLVER.VAL_ITER = 4, 2
+        loader_val = ValLoader(ValSet(4, s.seed + 20), 2)
+        real = inference_mod.inference
+        vals = []
+
+        def counted(detector, data_loader):
+            torch.cuda.synchronize()
+            c0 = counts()
+            out = real(detector, data_loader)
+            torch.cuda.synchronize()
+            c1 = counts()
+            vals.append(({k: c1[k] - c0[k] for k in c1}, out[0]))
+            return out
+
+        inference_mod.inference = counted
+        zero_counts()
+        try:
+            proto, best = trainer.do_train_da(
+                cfg, det, step, det.proto_state(),
+                itertools.cycle([batches[0][0], batches[1][0]]),
+                itertools.cycle([batches[0][1], batches[1][1]]),
+                loader_val=loader_val)
+        finally:
+            inference_mod.inference = real
+        torch.cuda.synchronize()
+        total = counts()
+        for i, (c, res) in enumerate(vals):
+            s.say(f"train_loop_validation{i}",
+                  f"AP50={res['AP50']} AP={res['AP']} launches={c}")
+            assert c["nms_sorted"] > 0 and c["vgg_stem_fused"] > 0, c
+        in_val = {k: sum(c[k] for c, _ in vals) for k in total}
+        train_k2 = total["vgg_stem_fused"] - in_val["vgg_stem_fused"]
+        s.say("train_loop_launches", f"total={total} in_validation={in_val} "
+              f"K2_in_training={train_k2} best_metric={best}")
+        assert len(vals) == 2 and train_k2 == 2 * cfg.SOLVER.MAX_ITER
+        st["val_launches"] = vals[0][0]
+        for k in st.get("kernels") or []:
+            if k["name"] in ("nms_sorted", "vgg_stem_fused"):
+                k["validation_launches_per_pass"] = vals[0][0][k["name"]]
+            if k["name"] == "vgg_stem_fused":
+                k["train_launches_per_step"] = 2
+
+    def p_train_time():
+        cfg, det, opt, sched, step, batches = st["train"]
+        bs, bt = batches[0]
+        targets = {k: bs[k] for k in ("boxes", "labels", "mask")}
+        n_img = bs["images"].shape[0] + bt["images"].shape[0]
+        for ft in (False, True):
+            gen = torch.Generator(device=dev).manual_seed(3000 + ft)
+            ms = cuda_time(lambda: step(det.proto_state(), bs, bt,
+                                        forward_target=ft, generator=gen), 5, 2)
+            s.say(f"train_step_ft{int(ft)}_ms", ms)
+            s.say(f"train_step_ft{int(ft)}_img_s", n_img * 1e3 / ms)
+            parts = {}
+            for rep in range(4):  # the step cut at its parts; rep 0 warms up
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+                ev[0].record()
+                ls, fs, acs, sms, new_proto = det.forward_train(
+                    det.proto_state(), bs["images"], targets, "source",
+                    generator=gen)
+                ev[1].record()
+                d_s = det.discriminator_losses(fs, acs, sms, 1.0, "source")
+                ev[2].record()
+                lt, ftg, act, smt, _ = det.forward_train(
+                    new_proto, bt["images"], None, "target",
+                    forward_target=ft, generator=gen)
+                ev[3].record()
+                d_t = det.discriminator_losses(ftg, act, smt, 0.0, "target")
+                ev[4].record()
+                total = (sum(ls.values()) + sum(d_s.values())
+                         + sum(d_t.values()) + sum(lt.values()))
+                opt.zero_grad(set_to_none=True)
+                total.backward()
+                ev[5].record()
+                opt.step()
+                sched.step()
+                ev[6].record()
+                torch.cuda.synchronize()
+                names = ("g_source", "d_source", "g_target", "d_target",
+                         "backward", "optimizer")
+                if rep:
+                    for j, name in enumerate(names):
+                        parts.setdefault(name, []).append(
+                            ev[j].elapsed_time(ev[j + 1]))
+                del ls, fs, acs, sms, lt, ftg, act, smt, total
+            s.say(f"train_split_ft{int(ft)}_ms",
+                  {k: sum(v) / len(v) for k, v in parts.items()})
+        captured = []
+        real = cg_mod.sample_target_nodes
+
+        def capture(*a, **k):
+            captured.append((a, k))
+            return real(*a, **k)
+
+        cg_mod.sample_target_nodes = capture
+        try:
+            with torch.no_grad():
+                det.forward_train(det.proto_state(), bt["images"], None,
+                                  "target", forward_target=True)
+        finally:
+            cg_mod.sample_target_nodes = real
+        a, k = captured[0]
+        with torch.no_grad():
+            s.say("sample_target_nodes_ms",
+                  cuda_time(lambda: real(*a, **k), 10, 2))
+        s.say("train_timing_peak_mem_gib",
+              torch.cuda.max_memory_allocated() / 2 ** 30)
+
     s.phase("build", p_build)
     s.phase("k1_nms_vs_plain", p_nms)
     s.phase("k2_stem_vs_plain", p_stem)
@@ -897,6 +1273,13 @@ def main(argv=None):
             s.failed.append("int8 timing (skipped)")
         else:
             s.phase("int8_timing", p_time_int8)
+    s.phase("train_small_card_vs_cpu", p_train_small)
+    s.phase("train_main_path_full_width", p_train_main)
+    if "train_main_path_full_width" in s.failed:
+        s.failed.append("training loop and timing (skipped)")
+    else:
+        s.phase("train_loop_with_validation", p_train_loop)
+        s.phase("train_timing", p_train_time)
 
     s.record["kernels"] = st.get("kernels")
     s.record["failed"] = s.failed

@@ -6,10 +6,10 @@ tensors are ``torch.channels_last`` NCHW, so the permute between the two is
 a free view. The kernels ``scan_tpu`` wrote in Pallas are hand-written CUDA
 C++ for ``sm_90a`` under ``csrc/``, built at first use (``ops/cuda/build.py``).
 
-This first slice covers the fp32/bf16 eval forward of the SCAN detector
-(VGG16-FPN, condgraph inference, FCOS head in all three ``TEST.MODE``s and
-the postprocess). It imports ``torch``, ``numpy`` and ``yaml``; never JAX,
-flax or ``scan_tpu``.
+It covers the SCAN detector's eval forward (VGG16-FPN, condgraph, FCOS head
+in all three ``TEST.MODE``s, the postprocess) in fp32/bf16 and w8a8 int8,
+and its float32 domain-adaptive training step and loop. It imports
+``torch``, ``numpy`` and ``yaml``; never JAX, flax or ``scan_tpu``.
 """
 
 from .device import resolve_device

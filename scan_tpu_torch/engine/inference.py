@@ -1,11 +1,13 @@
-"""Evaluation loop (counterpart of ``scan_tpu/engine/inference.py::compute_predictions``).
+"""Evaluation loop (counterpart of ``scan_tpu/engine/inference.py``).
 
-Runs the detector over batches laid out as ``scan_tpu``'s loader yields
-them (``images`` uint8 NHWC, ``sizes`` (B, 2) [h, w], ``scales`` (B, 2)
-[sw, sh], ``indices`` (B,), -1 for padding slots) and returns predictions
-per index in ORIGINAL image coordinates. The device mesh and the chained
-dispatch of ``scan_tpu`` are not ported; loaders and ``evaluation/`` come in
-a later slice.
+``compute_predictions`` runs the detector over batches laid out as
+``scan_tpu``'s loader yields them (``images`` uint8 NHWC, ``sizes`` (B, 2)
+[h, w], ``scales`` (B, 2) [sw, sh], ``indices`` (B,), -1 for padding slots)
+and returns predictions per index in ORIGINAL image coordinates;
+``inference`` scores them with the COCO protocol of
+``evaluation/coco_eval.py``, as the trainer's in-loop validation does. The
+device mesh, the chained dispatch and the VOC evaluator of ``scan_tpu`` are
+not ported, nor are its loaders.
 """
 
 import logging
@@ -14,6 +16,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from ..evaluation.coco_eval import evaluate_coco_dataset
 
 logger = logging.getLogger("scan_tpu_torch.inference")
 
@@ -67,3 +71,13 @@ def compute_predictions(detector, data_loader,
         logger.info("inference done: %d images in %.1fs (%.2f img/s)",
                     n_img, dt, n_img / dt)
     return predictions
+
+
+def inference(detector, data_loader):
+    """Predictions and COCO bbox metrics, fractions in [0, 1]
+    (``scan_tpu/engine/inference.py:129-135``). ``data_loader`` iterates
+    batches as ``compute_predictions`` takes them and has a ``dataset`` with
+    ``scan_tpu``'s ``COCODataset`` API (see ``evaluate_coco_dataset``).
+    Returns (results, predictions)."""
+    predictions = compute_predictions(detector, data_loader, progress_every=0)
+    return evaluate_coco_dataset(data_loader.dataset, predictions), predictions

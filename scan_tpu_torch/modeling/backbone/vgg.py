@@ -7,7 +7,11 @@ Convs are named ``conv0..conv12`` as in ``scan_tpu``, so weights carry over.
 
 fp path: stage 1 (conv1_1, ReLU, conv1_2, ReLU, pool) goes through
 ``ops/cuda/stem_kernel.py::fused_stem``, kernel K2 on the card, with its
-weights packed once per weight version.
+weights packed once per weight version. Stages 1-2 (conv0..conv3) are built
+frozen, ``requires_grad`` False, as ``scan_tpu``'s solver freezes a VGG body
+(``solver/build.py:59-100``, FREEZE_CONV_BODY_AT 2). So a training forward
+runs K2 too: its output needs no gradient. A caller that unfreezes stage 1
+gets the plain convs there (``_stage1_fp``).
 
 int8 path (``quant``): stages 2-5 are int8 convs, and stage 1 follows
 ``scan_tpu``'s ``_stage1_s2d`` (``vgg.py:236-528``) branch for branch, with
@@ -51,7 +55,7 @@ from ...ops.cuda.conv0_kernel import conv0_s8, pack_weight
 from ...ops.cuda.phase_max_kernel import pair_phase_max_s8, phase_max_requant
 from ...ops.cuda.stem_int8_kernel import fused_stem_int8
 from ...ops.cuda.stem_int8_kernel import pack_weights as pack_stem_int8
-from ...ops.cuda.stem_kernel import STEM_CH, STEM_IN, fused_stem
+from ...ops.cuda.stem_kernel import STEM_CH, STEM_IN, fused_stem, reference_stem
 from ...ops.cuda.stem_kernel import pack_weights as pack_stem
 from ...ops.quant import (QuantizedActivation, int8_conv, max_pool_2x2,
                           quantize_activation)
@@ -60,6 +64,8 @@ from ..layers import (Conv, add_scales, record_amax, stored_scale, to_nchw,
 
 VGG16_STAGE_BLOCKS = (2, 2, 3, 3, 3)
 VGG16_STAGE_CHANNELS = (64, 128, 256, 512, 512)
+FREEZE_AT = 2  # stages frozen in a VGG body (scan_tpu/solver/build.py:66)
+N_FROZEN_CONVS = sum(VGG16_STAGE_BLOCKS[:FREEZE_AT])
 STEM_SCALES = ("conv0_act", "conv1_act", "stem_out_act")
 _PAD1 = ((1, 1), (1, 1))
 
@@ -91,6 +97,8 @@ class VGG16(nn.Module):
                     act_scale=not in_stem))
                 cin = ch
                 idx += 1
+        for i in range(min(N_FROZEN_CONVS, idx)):
+            getattr(self, f"conv{i}").requires_grad_(False)
         if quant:
             self.dtype = None  # compute dtype, set by the detector
             self.calibrating = False
@@ -121,9 +129,18 @@ class VGG16(nn.Module):
         return tuple(outs)
 
     def _stage1_fp(self, x):
+        """Stage 1 through K2 when no gradient is asked of it: grad mode
+        off, or the stem frozen and an input that needs none (the default,
+        in training too). With grad mode on and a stem weight or the input
+        requiring grad, the plain convs (``reference_stem``) run instead,
+        chosen here by ``requires_grad``, so that the gradient exists."""
         c0, c1 = self.conv0, self.conv1
         weights = (c0.weight, c0.bias, c1.weight, c1.bias)
-        return fused_stem(x, *weights, out_dtype=c0.weight.dtype,
+        dt = c0.weight.dtype
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x,) + weights):
+            return reference_stem(x, *weights, out_dtype=dt)
+        return fused_stem(x, *weights, out_dtype=dt,
                           packed=self._packed(pack_stem, *weights))
 
     def _stage1_int8(self, x):

@@ -1,18 +1,28 @@
-"""The condgraph middle head, inference half (counterpart of
-``scan_tpu/modeling/condgraph/module.py``).
+"""The condgraph middle head (counterpart of
+``scan_tpu/modeling/condgraph/module.py``; reference
+``rpn/fcos/condgraph.py``, ``GRAPHModule``). Per mode:
 
-Parity target: reference ``fcos_core/modeling/rpn/fcos/condgraph.py``
-(``GRAPHModule``) in eval: head_in tower -> prototype kernel manifestation
-(RNN / (ITER,1)-conv / linear) -> per-class dynamic 1x1 conv -> activation
-maps -> concat onto the features -> head_out tower. Node sampling, the graph
-layers, the prototype EMA and the losses of training belong to a later
-slice, as do their submodules (``multihead_attn``, ``proto_cls*``,
-``gcn_layer*``, ``edge_project_*``).
+  source (training): head_in -> FCOS point labelling -> node sampling ->
+    graph aggregation (global multi-head attention or per-class GCN) and
+    the node-classification loss -> prototype EMA -> kernel manifestation
+    (RNN / (ITER,1)-conv / linear) -> per-class dynamic 1x1 conv -> the
+    act-map focal loss -> act maps concatenated onto the features ->
+    head_out.
+  target (training): kernels -> act maps -> density-based node sampling ->
+    graph aggregation -> the Graph-based Semantic Transfer losses (NODES KL,
+    PROTOTYPE KL, ADJ cosine; ``condgraph.py:457-498``).
+  inference: kernels -> act maps -> concat -> head_out.
+
+Node sets are fixed-capacity masked tensors and per-class reductions are
+one-hot matmuls built by comparing with an ``arange`` (``F.one_hot`` checks
+its input on the host), so a training pass reads nothing back. The
+``stop_gradient`` sites of ``scan_tpu`` are ``.detach()`` here: the edge
+softmax of ``cosine_detached``/``NO`` (``module.py:294, 298``) and the
+prototype update (``prototype.py``).
 
 Features are NHWC lists, one tensor per FPN level. With ``quant`` the
-``head_in`` and ``head_out`` towers run the int8 branch; the dynamic conv
-of the act maps stays fp (``scan_tpu/modeling/condgraph/module.py:144-161,
-207-219``).
+``head_in`` and ``head_out`` towers run the int8 branch, for inference only;
+the dynamic conv of the act maps stays fp (``module.py:144-161, 207-219``).
 """
 
 import dataclasses
@@ -24,8 +34,28 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.dynamic_conv import dynamic_conv
-from ..layers import ConvTower, Linear
-from .prototype import ProtoState
+from ...ops.focal_loss import bce_focal_loss, softmax_focal_loss
+from ...ops.locations import compute_locations
+from ..layers import ConvTower, Linear, MultiHeadSelfAttention, safe_l2_norm
+from .prototype import ProtoState, source_prototype_view, update_prototype
+from .sampling import sample_source_nodes, sample_target_nodes
+
+EPS = 1e-8
+
+
+def sim_matrix(a, b, eps=EPS):
+    """Cosine similarity matrix (reference ``condgraph.py:35-43``), finite
+    in its gradient at exactly-zero rows."""
+    a = a / safe_l2_norm(a, dim=1, keepdim=True, eps=eps).clamp_min(eps)
+    b = b / safe_l2_norm(b, dim=1, keepdim=True, eps=eps).clamp_min(eps)
+    return a @ b.t()
+
+
+def one_hot(index, num_classes: int, dtype):
+    """(N,) int -> (N, num_classes); rows of out-of-range indices are 0, as
+    ``jax.nn.one_hot`` makes them."""
+    classes = torch.arange(num_classes, device=index.device)
+    return (index[:, None] == classes[None, :]).to(dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,18 +194,45 @@ class TorchRNN(nn.Module):
         return outs
 
 
+
+
 class CondGraph(nn.Module):
-    """The SCAN middle head in inference mode."""
+    """The SCAN middle head; see the module docstring for its modes.
+
+    Submodules carry ``scan_tpu``'s names, and exactly the ones its
+    parameter tree holds for the config: ``multihead_attn`` (GLOBAL_GCN) or
+    ``gcn_layer1/2`` with ``edge_project_u`` (``softmax`` edges) and
+    ``edge_project_v`` (``softmax`` and ``cosine``), the node classifier
+    ``proto_cls_hidden``/``proto_cls``, and the manifestation branch."""
 
     def __init__(self, cfg: CondGraphConfig, quant: bool = False):
         super().__init__()
         self.cfg = c = cfg
+        self.quant = quant
         self.head_in = GraphTower(c.num_convs_in, c.in_channels, c.in_channels,
                                   norm=c.in_norm, quant=quant)
         if c.cat_act_map:
             self.head_out = GraphTower(
                 c.num_convs_out, c.in_channels + c.used_classes, c.in_channels,
                 quant=quant)
+        if c.global_gcn:
+            self.multihead_attn = MultiHeadSelfAttention(
+                model_dim=256, num_heads=4, dropout=c.mha_dropout)
+            node_dim = 256
+        else:
+            self.gcn_layer1 = Linear(c.in_channels, c.gcn1_out,
+                                     kernel_init="normal", std=0.01)
+            self.gcn_layer2 = Linear(c.gcn1_out, c.gcn2_out,
+                                     kernel_init="normal", std=0.01)
+            if c.gcn_edge_norm == "softmax":
+                self.edge_project_u = Linear(c.in_channels, 256)
+            if c.gcn_edge_norm in ("softmax", "cosine"):
+                self.edge_project_v = Linear(c.in_channels, 256)
+            node_dim = c.gcn2_out
+        self.proto_cls_hidden = Linear(node_dim, 512, kernel_init="normal",
+                                       std=0.01)
+        self.proto_cls = Linear(512, c.used_classes, kernel_init="normal",
+                                std=0.01)
         if c.use_rnn:
             self.cond_rnn = TorchRNN(c.proto_channel, 512, 2)
             self.cond_nx1 = Linear(512 * c.proto_iter, 256)
@@ -190,6 +247,7 @@ class CondGraph(nn.Module):
             self.cond_2 = Linear(c.cond_hidden, 256 + int(c.with_bias_dc),
                                  kernel_init="normal", std=0.01)
 
+    # ------------------------------------------------------------------ #
     def get_conded_weight(self, prototype):
         """Manifest prototypes into per-class 1x1 kernels
         (reference ``condgraph.py:313-336``)."""
@@ -205,6 +263,78 @@ class CondGraph(nn.Module):
             return self.cond_2(F.relu(self.cond_nx1_norm(hidden)))
         return self.cond_2(F.relu(self.cond_1(prototype)))
 
+    def _edge(self, nodes, pair_mask):
+        """Adjacency restricted to ``pair_mask``, per GCN_EDGE_NORM
+        (reference ``get_edge``, ``condgraph.py:284-302``)."""
+        c = self.cfg
+        neg = torch.full((), -1e30, device=nodes.device)
+        if c.gcn_edge_norm == "cosine_detached":
+            sim = torch.where(pair_mask, sim_matrix(nodes, nodes), neg)
+            return torch.softmax(sim, dim=-1).detach()
+        if c.gcn_edge_norm == "NO":
+            sim = torch.where(pair_mask, nodes @ nodes.t(), neg)
+            return torch.softmax(sim, dim=-1).detach()
+        if c.gcn_edge_norm == "softmax":
+            sim = self.edge_project_u(nodes) @ self.edge_project_v(nodes).t()
+            return torch.softmax(torch.where(pair_mask, sim, neg), dim=-1)
+        if c.gcn_edge_norm == "cosine":
+            proj = F.relu(self.edge_project_v(nodes))
+            sim = sim_matrix(proj, proj)
+            sim = torch.where(pair_mask, sim, torch.zeros_like(sim))
+            return sim / sim.sum(dim=-1, keepdim=True).clamp_min(EPS)
+        raise KeyError(c.gcn_edge_norm)
+
+    def _gcn_local(self, nodes, adj):
+        c = self.cfg
+        y = self.gcn_layer2(adj @ F.relu(self.gcn_layer1(adj @ nodes)))
+        act = c.gcn_out_activation
+        if act == "relu":
+            y = F.relu(y)
+        elif act == "softmax":
+            y = torch.softmax(y, dim=-1)
+        elif act == "sigmoid":
+            y = torch.sigmoid(y)
+        elif act == "tanh":
+            y = torch.tanh(y)
+        elif act != "NO":
+            raise KeyError(act)
+        return y + nodes if c.with_shortcut else y
+
+    def _cls_index(self, node_labels):
+        return node_labels if self.cfg.with_bg_proto else node_labels - 1
+
+    def forward_gcns(self, nodes, node_labels, node_valid, generator=None):
+        """Graph aggregation, the node-classification loss and the per-class
+        means (reference ``_forward_gcns``, ``condgraph.py:386-421``).
+        Returns (node_loss, prototype_batch (C_used, ch))."""
+        c = self.cfg
+        if c.global_gcn:
+            nodes_out = self.multihead_attn(nodes, mask=node_valid,
+                                            generator=generator)
+            if c.with_shortcut:
+                nodes_out = nodes_out + nodes
+        else:
+            same_class = node_labels[:, None] == node_labels[None, :]
+            valid_pair = node_valid[:, None] & node_valid[None, :] & same_class
+            nodes_out = self._gcn_local(nodes, self._edge(nodes, valid_pair))
+            nodes_out = torch.where(node_valid[:, None], nodes_out, nodes)
+
+        cls_index = self._cls_index(node_labels)
+        oh = one_hot(cls_index, c.used_classes, nodes_out.dtype)
+        oh = oh * node_valid[:, None].to(nodes_out.dtype)
+        counts = oh.sum(dim=0)
+        proto_batch = (oh.t() @ nodes_out) / counts[:, None].clamp_min(1.0)
+        proto_batch = proto_batch * (counts[:, None] > 0)
+
+        logits = self.proto_cls(F.relu(self.proto_cls_hidden(nodes_out)))
+        logp = torch.log_softmax(logits, dim=-1)
+        # rows of an out-of-range index are masked out below
+        target = cls_index.clamp(0, c.used_classes - 1).long()
+        ce = -torch.gather(logp, 1, target[:, None])[:, 0]
+        valid = node_valid.to(ce.dtype)
+        node_loss = c.gcn_loss_weight * (ce * valid).sum() / valid.sum().clamp_min(1.0)
+        return node_loss, proto_batch
+
     def _act_maps(self, features, conded_weight):
         c = self.cfg
         maps_logits = [dynamic_conv(f, conded_weight, with_bias=c.with_bias_dc)
@@ -215,6 +345,18 @@ class CondGraph(nn.Module):
             maps = [torch.sigmoid(m) for m in maps_logits]
         return maps_logits, maps
 
+    def get_act_loss(self, maps_logits, act_labels):
+        """Activation-map loss (reference ``condgraph.py:338-370``)."""
+        c = self.cfg
+        logits = torch.cat([m.reshape(-1, c.used_classes) for m in maps_logits])
+        labels = torch.cat([l.reshape(-1) for l in act_labels])
+        if c.act_loss == "softmaxFL":
+            return c.act_loss_weight * softmax_focal_loss(logits, labels)
+        if c.act_loss == "sigmoidFL":
+            onehot = one_hot(labels.clamp(0, 1), 2, logits.dtype)
+            return c.act_loss_weight * bce_focal_loss(logits, onehot)
+        return None
+
     def post_process(self, features, act_maps):
         """Concat act maps onto the features + head_out (``condgraph.py:379-384``)."""
         if not self.cfg.cat_act_map:
@@ -222,14 +364,120 @@ class CondGraph(nn.Module):
         return [self.head_out(torch.cat([f, a.to(f.dtype)], dim=-1))
                 for f, a in zip(features, act_maps)]
 
-    def forward(self, features, proto_state: ProtoState, mode: str = "inference"):
+    def _class_exist(self, node_labels, node_valid):
+        """Classes with at least one valid node this step, from counts
+        (``module.py:408-416``)."""
+        oh = one_hot(self._cls_index(node_labels), self.cfg.used_classes,
+                     torch.float32)
+        return (oh * node_valid[:, None]).sum(dim=0) > 0
+
+    def get_transfer_loss(self, sr_prototype, tg_prototype, tg_nodes,
+                          tg_labels, tg_valid, exist=None):
+        """Graph-based Semantic Transfer (reference ``condgraph.py:457-498``)."""
+        c = self.cfg
+        losses = []
+        cfg_str = [t for t in c.transfer_cfg if t]
+
+        def masked_kl(target_logits, logits, row_mask):
+            tgt = torch.softmax(target_logits, dim=-1)
+            kl = tgt * (torch.log(tgt.clamp_min(1e-12))
+                        - torch.log_softmax(logits, dim=-1))
+            m = row_mask[:, None].to(kl.dtype)
+            return (kl * m).sum() / (m.sum() * kl.shape[1]).clamp_min(1.0)
+
+        if any(t in ("NODES", "NODE") for t in cfg_str):
+            # KLDiv(log softmax(nodes), softmax(proto[label])), the mean over
+            # N * ch (torch KLDivLoss 'mean'); masked rows excluded. An index
+            # past the prototypes is clamped, as a JAX gather clamps it.
+            idx = tg_labels.clamp(0, sr_prototype.shape[0] - 1).long()
+            losses.append(masked_kl(sr_prototype[idx], tg_nodes, tg_valid))
+        if exist is None:
+            exist = tg_prototype.sum(dim=-1) != 0
+        if "PROTOTYPE" in cfg_str:
+            losses.append(masked_kl(sr_prototype, tg_prototype, exist))
+        if "ADJ" in cfg_str or "ADJ_COMPLETE" in cfg_str:
+            if "ADJ_COMPLETE" in cfg_str:
+                tg_c = torch.where(exist[:, None], tg_prototype, sr_prototype)
+                pair_mask = None
+            else:
+                tg_c = tg_prototype
+                pair_mask = exist[:, None] & exist[None, :]
+            adj_sr = sim_matrix(sr_prototype, sr_prototype)
+            adj_tg = sim_matrix(tg_c, tg_c)
+            if pair_mask is not None:
+                adj_sr = torch.where(pair_mask, adj_sr, torch.zeros_like(adj_sr))
+                adj_tg = torch.where(pair_mask, adj_tg, torch.zeros_like(adj_tg))
+            a, b = adj_sr.reshape(-1), adj_tg.reshape(-1)
+            cos = torch.dot(a, b) / (safe_l2_norm(a) * safe_l2_norm(b)).clamp_min(1e-8)
+            losses.append(1.0 - cos)
+        if not losses:
+            return None
+        return sum(losses)
+
+    # ------------------------------------------------------------------ #
+    def forward(self, features, proto_state: ProtoState, mode: str = "inference",
+                targets=None, generator=None):
         """Returns (features_out, losses, act_maps, proto_state), as
-        ``scan_tpu``'s ``CondGraph.__call__`` does."""
-        if mode != "inference":
+        ``scan_tpu``'s ``CondGraph.__call__`` does. ``targets`` (source mode)
+        holds ``boxes``, ``labels`` and ``mask``; ``generator`` draws the
+        MHA's dropout (none: deterministic). The int8 towers are for
+        inference: training modes raise on a ``quant`` module."""
+        if mode in ("source", "target") and self.quant:
             raise NotImplementedError(
-                f"condgraph mode {mode!r} is not ported yet (inference only)")
+                "the int8 condgraph runs inference only; training runs the "
+                "fp modules")
         features = [self.head_in(f) for f in features]
+        if mode == "source":
+            return self._forward_source(features, proto_state, targets,
+                                        generator)
+        if mode == "target":
+            return self._forward_target(features, proto_state, generator)
         conded_weight = self.get_conded_weight(proto_state.prototype.float())
         _, act_maps = self._act_maps(features, conded_weight)
-        features = self.post_process(features, act_maps)
-        return features, {}, act_maps, proto_state
+        return self.post_process(features, act_maps), {}, act_maps, proto_state
+
+    def _forward_source(self, features, proto_state, targets, generator):
+        c = self.cfg
+        shapes = [(f.shape[1], f.shape[2]) for f in features]
+        locations = compute_locations(shapes, c.fpn_strides,
+                                      device=features[0].device)
+        nodes, node_labels, node_valid, act_labels = sample_source_nodes(
+            locations, features, targets["boxes"], targets["labels"],
+            targets["mask"], max_nodes=c.max_nodes, with_bg=c.with_bg_proto)
+        node_loss, proto_batch = self.forward_gcns(nodes, node_labels,
+                                                   node_valid, generator)
+        new_state = update_prototype(
+            proto_state, proto_batch, c.proto_iter, c.use_rnn,
+            c.cosine_update, c.proto_momentum,
+            exist=self._class_exist(node_labels, node_valid))
+        maps_logits, act_maps = self._act_maps(
+            features, self.get_conded_weight(new_state.prototype))
+        losses = {"node_loss": node_loss}
+        if c.act_loss:
+            losses["act_loss"] = self.get_act_loss(maps_logits, act_labels)
+        return self.post_process(features, act_maps), losses, act_maps, new_state
+
+    def _forward_target(self, features, proto_state, generator):
+        c = self.cfg
+        _, act_maps = self._act_maps(
+            features, self.get_conded_weight(proto_state.prototype))
+        nodes, node_labels, node_valid, any_nodes = sample_target_nodes(
+            features, act_maps, max_nodes=c.max_nodes,
+            sampling_cfg=c.target_sampling, score_threshold=c.plabel_th,
+            dbscan_eps=c.dbscan_eps, dbscan_thr=c.dbscan_thr,
+            max_candidates_per_level=c.max_target_candidates)
+        features_out = self.post_process(features, act_maps)
+        losses = {}
+        if [t for t in c.transfer_cfg if t] or c.self_training:
+            node_loss, tg_proto = self.forward_gcns(nodes, node_labels,
+                                                    node_valid, generator)
+            transfer = self.get_transfer_loss(
+                source_prototype_view(proto_state, c.proto_iter), tg_proto,
+                nodes, node_labels, node_valid,
+                exist=self._class_exist(node_labels, node_valid))
+            gate = any_nodes.to(torch.float32)
+            if transfer is not None:
+                losses["transfer_loss"] = c.con_loss_weight * transfer * gate
+            if c.self_training:
+                losses["node_loss_tg"] = c.gcn_loss_weight_tg * node_loss * gate
+        return features_out, losses, act_maps, proto_state

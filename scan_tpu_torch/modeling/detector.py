@@ -5,15 +5,19 @@
 submodules (``backbone``, ``middle_head``, ``fcos``, the names of
 ``scan_tpu``'s parameter dict) and the prototype state as buffers.
 
-The inference parts are ported: construction, ``_prep_images`` and
-``forward_inference`` for the FCOS head with condgraph in all three
-TEST.MODEs, in fp32/bf16 or, with ``TPU.INT8_INFERENCE``, as w8a8 int8
-(``scan_tpu/modeling/detector.py:82-98, 361-464``) with ``calibrate_int8``
-for static activation scales. ``scan_tpu`` keeps int8 variants of the
-backbone and heads beside the fp ones over one parameter tree; the port
-has no training yet, so an int8 detector's backbone, middle head and head
-are the int8 variants themselves, over the same float32 parameters.
-Discriminators, ATSS and training come later.
+Ported: construction with the per-level discriminators of a DA config
+(``detector.py:113-175``, the GA and CKA families), the seeded init,
+``_prep_images``, the training forward ``forward_train`` and
+``discriminator_losses`` (``detector.py:262-358``), and ``forward_inference``
+for the FCOS head with condgraph in all three TEST.MODEs, in fp32/bf16 or,
+with ``TPU.INT8_INFERENCE``, as w8a8 int8 (``detector.py:82-98, 361-464``)
+with ``calibrate_int8`` for static activation scales. ``scan_tpu`` keeps
+int8 variants of the backbone and heads beside the fp ones over one
+parameter tree; here an int8 detector's backbone, middle head and head are
+the int8 variants themselves, over the same float32 parameters, and it
+does not train. Discriminator modules are attributes named as
+``scan_tpu``'s top-level keys (``dis_P3_CON``, ...). The center-aware and
+output-space discriminators and ATSS are not ported and raise.
 """
 
 import dataclasses
@@ -27,10 +31,15 @@ from ..ops.locations import compute_locations
 from .backbone.build import build_backbone
 from .condgraph.module import CondGraph, CondGraphConfig
 from .condgraph.prototype import ProtoState, init_proto_state
+from .discriminator.discriminators import (FCOSDiscriminator,
+                                           FCOSDiscriminatorCon)
 from .fcos.head import FCOSHead
+from .fcos.loss import fcos_losses
 from .fcos.module import mix_cls_maps
 from .fcos.postprocess import PostProcessConfig, fcos_postprocess
 from .layers import calibration, init_parameters
+
+LAYERS = ("P3", "P4", "P5", "P6", "P7")
 
 
 class SCANDetector(nn.Module):
@@ -76,9 +85,47 @@ class SCANDetector(nn.Module):
             num_classes=self.num_classes,
             nms_cap=cfg.TPU.get("NMS_CAP", 512),
         )
-        self.pixel_mean = tuple(cfg.INPUT.PIXEL_MEAN)
-        self.pixel_std = tuple(cfg.INPUT.PIXEL_STD)
+        self.loss_gamma = cfg.MODEL.FCOS.LOSS_GAMMA
+        self.loss_alpha = cfg.MODEL.FCOS.LOSS_ALPHA
+        # on the module's device, so normalising copies nothing from the host
+        self.register_buffer("pixel_mean", torch.tensor(
+            cfg.INPUT.PIXEL_MEAN, dtype=torch.float32), persistent=False)
+        self.register_buffer("pixel_std", torch.tensor(
+            cfg.INPUT.PIXEL_STD, dtype=torch.float32), persistent=False)
         self.to_bgr255 = cfg.INPUT.TO_BGR255
+        self._build_discriminators(cfg)
+
+    def _build_discriminators(self, cfg):
+        """The per-level discriminators of a DA config, in ``scan_tpu``'s
+        order and under its names (``detector.py:113-171``)."""
+        adv = cfg.MODEL.ADV
+        self.lambdas = {"GA": adv.GA_DIS_LAMBDA, "CA": adv.CA_DIS_LAMBDA,
+                        "OUT": adv.OUT_DIS_LAMBDA, "CON": adv.CON_DIS_LAMBDA}
+        self.dis_names = []
+        if not cfg.MODEL.DA_ON:
+            return
+        for layer in LAYERS:
+            grl_w = adv[f"GRL_WEIGHT_{layer}"]
+            if adv[f"USE_DIS_{layer}"] and (adv.USE_DIS_CENTER_AWARE
+                                            or adv.USE_DIS_OUT):
+                raise NotImplementedError(
+                    "the center-aware and output-space discriminators are "
+                    "not ported to scan_tpu_torch yet")
+            if adv.USE_DIS_GLOBAL and adv[f"USE_DIS_{layer}"]:
+                self._add_dis(f"dis_{layer}", FCOSDiscriminator(
+                    num_convs=adv[f"DIS_{layer}_NUM_CONVS"], grl_lambda=grl_w,
+                    grl_applied_domain=adv.GRL_APPLIED_DOMAIN,
+                    patch_stride=adv.PATCH_STRIDE))
+            if adv.USE_DIS_CON and adv[f"USE_DIS_{layer}_CON"]:
+                self._add_dis(f"dis_{layer}_CON", FCOSDiscriminatorCon(
+                    num_convs=adv[f"CON_NUM_SHARED_CONV_{layer}"],
+                    num_classes=self.num_classes,
+                    fusion_cfg=adv.CON_FUSUIN_CFG, grl_lambda=grl_w,
+                    grl_applied_domain=adv.GRL_APPLIED_DOMAIN))
+
+    def _add_dis(self, name, module):
+        self.add_module(name, module)
+        self.dis_names.append(name)
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()
@@ -87,7 +134,7 @@ class SCANDetector(nn.Module):
         ``modeling/layers.py``), drawn on the CPU so a seed gives the same
         weights on every device; prototypes are standard normal."""
         gen = torch.Generator().manual_seed(seed)
-        for name in ("backbone", "middle_head", "fcos"):
+        for name in ("backbone", "middle_head", "fcos", *self.dis_names):
             if hasattr(self, name):
                 init_parameters(getattr(self, name), gen)
         if self.condgraph_on:
@@ -130,9 +177,64 @@ class SCANDetector(nn.Module):
             x = x.flip(-1)
         else:
             x = x / 255.0
-        mean = torch.tensor(self.pixel_mean, dtype=torch.float32, device=x.device)
-        std = torch.tensor(self.pixel_std, dtype=torch.float32, device=x.device)
-        return ((x - mean) / std).contiguous()
+        return ((x - self.pixel_mean) / self.pixel_std).contiguous()
+
+    # ------------------------------------------------------------------ #
+    def forward_train(self, proto_state, images, targets, mode: str,
+                      forward_target: bool = False, generator=None):
+        """One domain's G pass (``detector.py:262-328``; reference
+        ``foward_detector``, trainer.py:20-72). ``mode`` is "source" (with
+        ``targets``: ``boxes``, ``labels``, ``mask``) or "target"; the
+        target pass runs the condgraph's target mode only when
+        ``forward_target``. ``generator`` draws the MHA's dropout; without
+        one the pass is deterministic. Returns (losses, features, act_maps,
+        score_maps, new_proto_state)."""
+        images = self._prep_images(images)
+        feats = list(self.backbone(images))
+        losses = {}
+        act_maps = None
+        new_state = proto_state
+        if self.condgraph_on:
+            mh_mode = mode if (mode == "source" or forward_target) else "inference"
+            feats, mh_losses, act_maps, new_state = self.middle_head(
+                feats, proto_state, mh_mode,
+                targets if mode == "source" else None, generator=generator)
+            losses.update(mh_losses)
+        score_maps = None
+        if mode == "source":
+            logits, reg, ctr = self.fcos(feats, True)
+            score_maps = {"box_cls": logits, "box_regression": reg,
+                          "centerness": ctr}
+            shapes = [(f.shape[1], f.shape[2]) for f in feats]
+            locations = compute_locations(shapes, self.strides,
+                                          device=images.device)
+            losses.update(fcos_losses(
+                locations, logits, reg, ctr, targets["boxes"],
+                targets["labels"], targets["mask"], gamma=self.loss_gamma,
+                alpha=self.loss_alpha))
+        return losses, feats, act_maps, score_maps, new_state
+
+    def discriminator_losses(self, feats, act_maps, score_maps,
+                             domain_label: float, domain: str):
+        """Per-level adversarial losses (``detector.py:330-358``; reference
+        trainer.py:314-376), ``lambda * loss`` under the names
+        ``loss_adv_{P}_{FAMILY}_{ds|dt}``. ``score_maps`` would feed the
+        center-aware and output-space families, which are not ported."""
+        losses = {}
+        suffix = "ds" if domain == "source" else "dt"
+        for name in self.dis_names:
+            parts = name.split("_")
+            layer = parts[1]
+            family = parts[2] if len(parts) > 2 else "GA"
+            lvl = LAYERS.index(layer)
+            mod = getattr(self, name)
+            if family == "GA":
+                val = mod(feats[lvl], domain_label, domain)
+            else:  # CON
+                val = mod(feats[lvl], domain_label, act_maps[lvl], domain)
+            losses[f"loss_adv_{layer}_{family}_{suffix}"] = (
+                self.lambdas[family] * val)
+        return losses
 
     @torch.no_grad()
     def calibrate_int8(self, image_batches):

@@ -264,6 +264,83 @@ class Linear(nn.Linear):
         self.bias.zero_()
 
 
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm(eps=1e-5) with unit weight and zero bias."""
+
+    @torch.no_grad()
+    def init_parameters(self, gen: torch.Generator):
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+
+def safe_l2_norm(x, dim=None, keepdim=False, eps: float = 1e-8):
+    """L2 norm with a finite gradient at 0 (``scan_tpu/layers.py:43-50``):
+    empty prototype slots and masked nodes are exactly-zero rows."""
+    sq = x * x
+    s = sq.sum() if dim is None else sq.sum(dim=dim, keepdim=keepdim)
+    return torch.sqrt(s + eps * eps)
+
+
+def dropout(x, rate: float, generator=None):
+    """Inverted dropout drawn from ``generator``; the identity without one
+    (flax's ``nn.Dropout``: keep with probability 1 - rate, scale the kept
+    by 1 / (1 - rate))."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+class MultiHeadSelfAttention(nn.Module):
+    """Multi-head self-attention over the sampled graph nodes
+    (``scan_tpu/modeling/layers.py:207-268``; reference
+    ``layers/transformer.py:36-91``), with its peculiarities kept:
+
+    * the head split is a raw view, (N, D) -> (heads, N, D / heads) in
+      row-major order, not the usual per-channel split;
+    * the scale is ``(dh // heads) ** -0.5``;
+    * under that view key m of head h holds a slice of node (h * N + m) //
+      heads, so the validity mask of the keys is remapped accordingly;
+    * dropout on the attention weights and on the output of
+      ``linear_final``, before the residual and the post-residual LayerNorm.
+
+    Dropout is drawn from the ``generator`` passed to ``forward``; without
+    one the module is deterministic, as ``scan_tpu``'s is without a
+    dropout rng. It is not ``nn.MultiheadAttention``, which splits heads
+    and scales differently.
+    """
+
+    def __init__(self, model_dim=256, num_heads=4, dropout=0.0):
+        super().__init__()
+        self.model_dim = model_dim
+        self.num_heads = num_heads
+        self.dropout = dropout
+        for name in ("linear_q", "linear_k", "linear_v", "linear_final"):
+            self.add_module(name, Linear(model_dim, model_dim))
+        self.layer_norm = LayerNorm(model_dim, eps=1e-5)
+
+    def forward(self, x, mask=None, generator=None):
+        """x (N, D) nodes; mask (N,) bool validity."""
+        d, h = self.model_dim, self.num_heads
+        dh = d // h
+        n = x.shape[0]
+        q = self.linear_q(x).reshape(h, n, dh)
+        k = self.linear_k(x).reshape(h, n, dh)
+        v = self.linear_v(x).reshape(h, n, dh)
+        scale = float(max(dh // h, 1)) ** -0.5
+        attn = torch.matmul(q, k.transpose(1, 2)) * scale
+        if mask is not None:
+            pos = (torch.arange(h, device=x.device)[:, None] * n
+                   + torch.arange(n, device=x.device)[None, :])
+            pos_mask = mask[pos // h]  # (h, n)
+            attn = torch.where(pos_mask[:, None, :], attn,
+                               torch.full_like(attn, -1e30))
+        attn = dropout(torch.softmax(attn, dim=-1), self.dropout, generator)
+        ctx = torch.matmul(attn, v).reshape(n, d)
+        out = dropout(self.linear_final(ctx), self.dropout, generator)
+        return self.layer_norm(x + out)
+
+
 def init_parameters(module: nn.Module, gen: torch.Generator):
     """Apply every submodule's ``init_parameters`` in registration order."""
     for m in module.modules():

@@ -35,7 +35,7 @@ import ctypes
 import torch
 
 from ..quant import clamp_scale, conv_s32, f32, prepare_weight, quantize_weight
-from . import build
+from . import build, refuse_autograd
 
 CH = 64
 
@@ -75,7 +75,9 @@ def conv0_s8(x_q, w0, b0, s0, s1, packed=None):
 
     x_q (B, H, W, 3) int8 at scale s0; w0 (3, 3, 3, 64) float HWIO; b0 (64,).
     Returns (B, H, W, 64) int8 at scale s1. ``packed`` is ``pack_weight(w0)``
-    (made here when None); the plain version quantizes w0 itself."""
+    (made here when None); the plain version quantizes w0 itself. Raises
+    under autograd (``refuse_autograd``): the kernel is for inference."""
+    refuse_autograd("conv0_s8", x_q, w0, b0)
     if x_q.device.type == "cpu":
         return conv0_s8_plain(x_q, w0, b0, s0, s1)
     if x_q.device.type != "cuda":

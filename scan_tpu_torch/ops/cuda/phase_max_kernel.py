@@ -27,7 +27,7 @@ import ctypes
 import torch
 
 from ..quant import max_pool_2x2
-from . import build
+from . import build, refuse_autograd
 
 
 def phase_max_requant_plain(z, s_out):
@@ -67,7 +67,9 @@ def phase_max_requant(z, s_out):
     """K4: clip(round(relu(maxpool2x2(z)) / s_out), -127, 127) as int8.
 
     z (B, H, W, C) NHWC bf16 or f32; s_out a f32 scalar tensor, already
-    clamped at 1e-8 (``vgg.py`` clamps it, as ``scan_tpu`` does)."""
+    clamped at 1e-8 (``vgg.py`` clamps it, as ``scan_tpu`` does). Raises
+    under autograd (``refuse_autograd``): the kernel is for inference."""
+    refuse_autograd("phase_max_requant", z)
     if z.device.type == "cpu":
         return phase_max_requant_plain(z, s_out)
     z = _check("phase_max_requant", z, (torch.bfloat16, torch.float32), 8)
@@ -89,7 +91,8 @@ def phase_max_requant(z, s_out):
 
 def pair_phase_max_s8(z):
     """K6: the 2x2 max-pool of z (B, H, W, C) int8 NHWC, C a multiple of
-    16 (the full-width stem has 64)."""
+    16 (the full-width stem has 64). Raises under autograd."""
+    refuse_autograd("pair_phase_max_s8", z)
     if z.device.type == "cpu":
         return pair_phase_max_s8_plain(z)
     z = _check("pair_phase_max_s8", z, (torch.int8,), 16)

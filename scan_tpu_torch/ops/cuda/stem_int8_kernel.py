@@ -33,7 +33,7 @@ import torch
 
 from ..quant import (clamp_scale, conv_s32, max_pool_2x2, prepare_weight,
                      quantize_weight)
-from . import build
+from . import build, refuse_autograd
 
 CH = 64
 
@@ -81,7 +81,9 @@ def fused_stem_int8(x_q, w0, b0, w1, b1, s0, s1, s_out, packed=None):
     """x_q (B, H, W, 3) int8 at scale s0 -> (B, H/2, W/2, 64) int8 at s_out.
 
     ``packed`` is ``pack_weights(w0, w1)`` (made here when None); the plain
-    version quantizes the weights itself."""
+    version quantizes the weights itself. Raises under autograd
+    (``refuse_autograd``): the kernel is for inference."""
+    refuse_autograd("fused_stem_int8", x_q, w0, b0, w1, b1)
     if x_q.device.type == "cpu":
         return fused_stem_int8_plain(x_q, w0, b0, w1, b1, s0, s1, s_out)
     if x_q.device.type != "cuda":

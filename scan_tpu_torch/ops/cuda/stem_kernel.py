@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, refuse_autograd
 
 STEM_IN = 3
 STEM_CH = 64
@@ -98,7 +98,15 @@ def fused_stem(x, w0, b0, w1, b1, out_dtype=torch.float32, packed=None):
     tensors take the plain version; CUDA tensors launch kernel K2 or raise.
     ``packed`` is ``pack_weights(w0, b0, w1, b1, out_dtype)``, made here
     when None.
+
+    K2 has no backward. With grad mode on, an input that requires grad
+    makes this raise on every device (``refuse_autograd``) rather than give
+    an output autograd would treat as a constant: training runs it on the
+    frozen stem (``VGG16`` builds conv0..conv3 with ``requires_grad``
+    False), and a caller that wants the stem's gradient runs
+    ``reference_stem``.
     """
+    refuse_autograd("fused_stem", x, w0, b0, w1, b1)
     if x.device.type == "cpu":
         return reference_stem(x, w0, b0, w1, b1, out_dtype)
     if x.device.type != "cuda":

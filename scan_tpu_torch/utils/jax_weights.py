@@ -2,8 +2,9 @@
 ``scan_tpu/utils/torch_weights.py``, the other direction).
 
 Input is the JAX parameter dict as ``jax.device_get(params)`` gives it:
-``{"backbone": {"params": ...}, "middle_head": {...}, "fcos": {...}, ...}``,
-nested dicts of numpy arrays. The port's modules carry ``scan_tpu``'s names,
+``{"backbone": {"params": ...}, "middle_head": {...}, "fcos": {...},
+"dis_P3_CON": {...}, ...}``, nested dicts of numpy arrays. The port's
+modules carry ``scan_tpu``'s names, the discriminators its top-level keys,
 so a path maps to a state-dict key by dropping ``params`` and flax's
 wrapper scopes (``Conv_0``, ``GroupNorm_0``) and converting layouts:
 
@@ -22,10 +23,11 @@ calibration measures the same tensors under both sets of names (stage 1's
 input, its ReLU'd conv1_1 and its pooled output, which conv2 reads), so
 those fill in the stem's names.
 
-Parameters of parts the port does not have yet (discriminators, the
-training-only condgraph layers) are skipped; every parameter of the port
-must be covered, and every key carried over must exist in the port, or
-``load_jax_params`` raises. A scale buffer with no scale in the tree (an
+Every top-level key is carried over, the training-only condgraph layers
+(``multihead_attn``, ``proto_cls_hidden``, ``proto_cls``, ``gcn_layer1/2``,
+``edge_project_u/v``) and the ``dis_*`` discriminators included: every
+parameter of the port must be covered, and every key carried over must
+exist in the port, or ``load_jax_params`` raises. A scale buffer with no scale in the tree (an
 uncalibrated tree, or the cls tower after a ``light``-mode calibration)
 holds no value afterwards, and its conv quantizes dynamically, as
 ``scan_tpu``'s does. Nothing here imports JAX.
@@ -42,12 +44,6 @@ _STEM_ALIASES = {
     "backbone.body.conv0_act": "backbone.body.conv0.amax",
     "backbone.body.conv1_act": "backbone.body.conv1.amax",
     "backbone.body.stem_out_act": "backbone.body.conv2.amax",
-}
-# scan_tpu modules that only training or other heads use
-_NOT_PORTED = {
-    "middle_head": ("multihead_attn", "proto_cls_hidden", "proto_cls",
-                    "gcn_layer1", "gcn_layer2", "edge_project_u",
-                    "edge_project_v"),
 }
 
 
@@ -66,13 +62,9 @@ def _flatten(tree, path=()):
 def convert_params(params: dict) -> dict:
     """JAX parameter dict -> the port's state dict (torch float32 tensors)."""
     out = {}
-    for top in ("backbone", "middle_head", "fcos"):
-        if top not in params:
-            continue
+    for top in params:
         for path, arr in _flatten(params[top]):
             parts = [p for p in path if p not in _WRAPPERS]
-            if parts and parts[0] in _NOT_PORTED.get(top, ()):
-                continue
             leaf = parts[-1]
             owner = parts[-2] if len(parts) > 1 else ""
             if leaf == "kernel":

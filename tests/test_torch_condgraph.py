@@ -1,12 +1,14 @@
 """The port's condgraph inference against ``scan_tpu``'s on the CPU, float32.
 
-``scan_tpu``'s ``CondGraph`` is initialised in inference mode and its
+``scan_tpu``'s ``CondGraph`` is initialised in source mode, so its tree holds
+the training layers too (the MHA, the node classifier), and its
 parameters and prototype state are carried across by
 ``scan_tpu_torch/utils/jax_weights.py``. The manifested kernels, the act
 maps and the features out of head_out must agree within rtol 1e-4, atol
 1e-5 (float32 convolutions and matmuls summed in another order), for the
 three kernel-manifestation paths: the RNN that C2F uses, the (ITER,1) conv
-with GroupNorm, and the linear one for PROTO_ITER 1.
+with GroupNorm, and the linear one for PROTO_ITER 1. Training modes are
+held against ``scan_tpu`` in ``tests/test_torch_condgraph_train.py``.
 """
 
 import dataclasses
@@ -55,7 +57,11 @@ def test_condgraph_inference_matches_scan_tpu(use_rnn, proto_iter):
 
     jmod = JaxCondGraph(jcfg)
     jfeats = [jnp.asarray(f) for f in feats]
-    params = jmod.init(jax.random.PRNGKey(3), jfeats, jstate, "inference")
+    targets = {"boxes": jnp.asarray([[[8.0, 8.0, 48.0, 40.0]]] * 2),
+               "labels": jnp.ones((2, 1), jnp.int32),
+               "mask": jnp.ones((2, 1), bool)}
+    params = jmod.init(jax.random.PRNGKey(3), jfeats, jstate, "source",
+                       targets)
     want_feats, _, want_maps, _ = jax.device_get(
         jmod.apply(params, jfeats, jstate, "inference"))
     want_w = jax.device_get(jmod.apply(
@@ -80,7 +86,10 @@ def test_condgraph_inference_matches_scan_tpu(use_rnn, proto_iter):
 
 
 def test_training_modes_are_refused():
-    mod = CondGraph(CondGraphConfig())
+    """The int8 condgraph is for inference: ``scan_tpu`` trains the fp
+    modules only (``detector.py:82-84``)."""
+    mod = CondGraph(CondGraphConfig(), quant=True)
     state = ProtoState(torch.zeros(9, 256, 3), torch.tensor(-1))
-    with pytest.raises(NotImplementedError):
-        mod([torch.zeros(1, 2, 2, 256)], state, "source")
+    for mode in ("source", "target"):
+        with pytest.raises(NotImplementedError):
+            mod([torch.zeros(1, 2, 2, 256)], state, mode)

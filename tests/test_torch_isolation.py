@@ -47,7 +47,12 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
     assert "scan_tpu_torch.modeling.detector" in res["modules"]
     for name in ("ops.cuda.nms_kernel", "ops.cuda.stem_kernel", "ops.quant",
                  "ops.cuda.conv0_kernel", "ops.cuda.phase_max_kernel",
-                 "ops.cuda.stem_int8_kernel"):
+                 "ops.cuda.stem_int8_kernel", "ops.focal_loss", "ops.iou_loss",
+                 "modeling.fcos.targets", "modeling.fcos.loss",
+                 "modeling.condgraph.sampling", "modeling.discriminator.grl",
+                 "modeling.discriminator.discriminators", "solver.build",
+                 "engine.train_step", "engine.trainer",
+                 "evaluation.coco_eval", "utils.metric_logger"):
         assert "scan_tpu_torch." + name in res["modules"], name
     assert res["bad"] == []
     if not res["cuda"]:

@@ -374,3 +374,55 @@ def test_stem_int8_kernel_zero_input_edge(cuda_device):
     want = stem_int8_kernel.fused_stem_int8_plain(x_q, w0, b0 * 2, w1, b1, *s)
     assert torch.equal(got, want)
     assert int(want.ne(want[:, 1:2, 1:2]).sum()) > 0, "border must differ"
+
+
+@pytest.mark.gpu
+def test_stem_kernel_refuses_autograd(cuda_device):
+    """K2 has no backward: with grad mode on, an input that requires grad
+    makes the wrapper raise instead of returning a constant to autograd."""
+    x, w0, b0, w1, b1 = _stem_data(32, 48, 7, cuda_device)
+    w1 = w1.clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        stem_kernel.fused_stem(x, w0, b0, w1, b1)
+    with torch.no_grad():
+        stem_kernel.fused_stem(x, w0, b0, w1, b1)
+
+
+@pytest.mark.gpu
+def test_training_step_runs_k2_on_the_frozen_stem(cuda_device):
+    """One DA step of the full-width C2F model on a small input: the frozen
+    stem runs K2 in the source and the target forward, its weights do not
+    move, and a trained weight does."""
+    import os
+
+    from scan_tpu_torch.config import get_default_cfg
+    from scan_tpu_torch.engine.train_step import make_da_train_step
+    from scan_tpu_torch.modeling.detector import build_detector
+    from scan_tpu_torch.solver.build import make_lr_scheduler, make_optimizer
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file(os.path.join(os.path.dirname(__file__), "..", "configs",
+                                     "scan", "scan_vgg16_cityscapace_to_foggy.yaml"))
+    cfg.TPU.MAX_BOXES = 4
+    det = build_detector(cfg, device=cuda_device)
+    opt = make_optimizer(cfg, det)
+    step = make_da_train_step(det, opt, make_lr_scheduler(cfg, opt))
+    g = torch.Generator().manual_seed(0)
+    images = torch.randint(0, 256, (2, 2, 128, 192, 3), generator=g,
+                           dtype=torch.uint8)
+    batch_s = dict(images=images[0], sizes=torch.tensor([[128, 192]] * 2),
+                   boxes=torch.tensor([[[8., 8., 60., 70.], [40., 30., 150., 120.],
+                                        [0, 0, 0, 0], [0, 0, 0, 0]]] * 2),
+                   labels=torch.tensor([[3, 6, 0, 0]] * 2, dtype=torch.int32),
+                   mask=torch.tensor([[True, True, False, False]] * 2))
+    body = det.backbone.body
+    stem_w = body.conv1.weight.detach().clone()
+    trained = body.conv4.weight.detach().clone()
+    before = stem_kernel.fused_stem.launches
+    _, metrics = step(det.proto_state(), batch_s, {"images": images[1]},
+                      forward_target=True)
+    torch.cuda.synchronize()
+    assert stem_kernel.fused_stem.launches == before + 2
+    assert torch.isfinite(metrics["loss_total"]).item()
+    assert torch.equal(body.conv1.weight, stem_w)
+    assert not torch.equal(body.conv4.weight, trained)

@@ -65,3 +65,37 @@ def test_cpu_wrapper_does_not_launch():
     _port(*_data(8, 8))
     assert stem_kernel.fused_stem.launches == before
 
+
+
+def test_fused_stem_refuses_autograd():
+    """K2 has no backward, so its wrapper raises on every device when grad
+    mode is on and an input requires grad; under no_grad it runs."""
+    x, w0, b0, w1, b1 = (torch.from_numpy(a) for a in _data(8, 8))
+    w0 = w0.permute(3, 2, 0, 1).contiguous().requires_grad_(True)
+    w1 = w1.permute(3, 2, 0, 1).contiguous()
+    with pytest.raises(RuntimeError, match="no backward"):
+        stem_kernel.fused_stem(x, w0, b0, w1, b1)
+    with torch.no_grad():
+        stem_kernel.fused_stem(x, w0, b0, w1, b1)
+
+
+def test_vgg_stem_is_frozen_and_unfreezing_runs_the_plain_convs(monkeypatch):
+    """VGG16 builds conv0..conv3 frozen, so a training forward runs the
+    stem wrapper (K2 on the card); a caller that unfreezes stage 1 gets the
+    plain convs and a gradient for them."""
+    from scan_tpu_torch.modeling.backbone import vgg as vgg_mod
+
+    net = vgg_mod.VGG16(width_div=8)
+    frozen = {n.split(".")[0] for n, p in net.named_parameters()
+              if not p.requires_grad}
+    assert frozen == {"conv0", "conv1", "conv2", "conv3"}
+    calls = []
+    real = vgg_mod.fused_stem
+    monkeypatch.setattr(vgg_mod, "fused_stem",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    x = torch.randn(1, 32, 32, 3)
+    net(x)[-1].sum().backward()
+    assert calls == [1] and net.conv4.weight.grad is not None
+    net.conv0.requires_grad_(True)
+    net(x)[-1].sum().backward()
+    assert calls == [1] and net.conv0.weight.grad is not None

@@ -64,10 +64,12 @@ final ``{"ok": true, ...}`` line:
      metrics within rtol 1e-4 and every parameter update within the bound
      stated in ``p_train_small``;
  13. ``train_main_path_full_width``: the DA step at C2F's full width, batch
-     4 + 4 at 800x1344, float32, seeded weights and batches with GT boxes,
-     dropout on: three steps with ``forward_target`` False and three with
-     True (the counters zeroed before and read after: K2 twice a step, no
-     other kernel), then one step of each variant under
+     4 + 4 at 800x1344, float32, seeded weights, dropout on, seeded scenes
+     with 16 GT boxes an image (source) and fogged scenes (target): three
+     steps with ``forward_target`` True, the first (from the seeded state)
+     with target nodes and a transfer loss above 0, then three with False
+     (the counters zeroed before and read after: K2 twice a step, no other
+     kernel), then one step of each variant under
      ``torch.cuda.set_sync_debug_mode("error")``; every loss finite, the
      trained parameters moved and the frozen ones not, the prototype
      counter and values advanced; peak device memory;
@@ -76,8 +78,9 @@ final ``{"ok": true, ...}`` line:
      (COCO AP through ``engine/inference.py::inference``): K1 and K2 launch
      in each validation, K2 twice a training step; AP50 printed;
  15. ``train_timing``: ms per DA step and img/s (source + target) in each
-     variant, CUDA events after warm-up; the step split into G source, D
-     source, G target, D target, backward and optimizer;
+     variant, CUDA events after warm-up, each step from phase 13's seeded
+     state (so the True variant's GST has nodes, checked); the step split
+     into G source, D source, G target, D target, backward and optimizer;
      ``sample_target_nodes`` alone at full width.
 
 Every number is printed with the card's name and power limit; everything is
@@ -916,12 +919,9 @@ def main(argv=None):
         sched = make_lr_scheduler(cfg, opt)
         return det, opt, sched, make_da_train_step(det, opt, sched)
 
-    def train_batches(b, h, w, seed, device, n_boxes=8, k=5):
-        """Seeded uint8 source and target batches, k GT boxes an image
-        (16 px to 30% of the image a side) in ``n_boxes`` slots."""
-        g = torch.Generator().manual_seed(seed)
-        ims = torch.randint(0, 256, (2, b, h, w, 3), generator=g,
-                            dtype=torch.uint8)
+    def gt_boxes(g, b, h, w, n_boxes, k):
+        """k GT boxes an image (16 px to 30% of the image a side) with
+        labels 1..8, in ``n_boxes`` slots."""
         xy = torch.rand(b, k, 2, generator=g) * torch.tensor([w * 0.7, h * 0.7])
         wh = torch.rand(b, k, 2, generator=g) * torch.tensor([w * 0.3, h * 0.3])
         boxes = torch.zeros(b, n_boxes, 4)
@@ -931,11 +931,45 @@ def main(argv=None):
                                       dtype=torch.int32)
         mask = torch.zeros(b, n_boxes, dtype=torch.bool)
         mask[:, :k] = True
-        bs = dict(images=ims[0], sizes=torch.tensor([[h, w]] * b,
-                                                    dtype=torch.int32),
+        return boxes, labels, mask
+
+    def scene(g, boxes, labels, mask, h, w):
+        """uint8 scenes: a smooth background with a vertical gradient, each
+        GT box filled with its class's colour, pixel noise of sd 8."""
+        b = boxes.shape[0]
+        low = torch.rand(b, 3, max(h // 64, 2), max(w // 64, 2), generator=g)
+        bg = F.interpolate(low, size=(h, w), mode="bilinear",
+                           align_corners=False)
+        bg = 60 + 140 * bg + torch.linspace(-30, 30, h)[None, None, :, None]
+        img = bg.permute(0, 2, 3, 1).contiguous()
+        colours = torch.rand(9, 3, generator=g) * 255
+        for i in range(b):
+            for j in range(int(mask[i].sum())):
+                x0, y0, x1, y1 = (int(v) for v in boxes[i, j])
+                img[i, y0:min(y1, h), x0:min(x1, w)] = colours[int(labels[i, j])]
+        img = img + 8.0 * torch.randn(img.shape, generator=g)
+        return img.clamp(0, 255).to(torch.uint8)
+
+    def train_batches(b, h, w, seed, device, n_boxes=8, k=5, scenes=False):
+        """Seeded uint8 source and target batches, the source with k GT
+        boxes an image. Uniform noise, or with ``scenes`` the source a
+        scene drawn at its boxes and the target a fogged scene (blended 45%
+        towards grey 200, as Foggy Cityscapes thickens Cityscapes)."""
+        g = torch.Generator().manual_seed(seed)
+        if scenes:
+            boxes, labels, mask = gt_boxes(g, b, h, w, n_boxes, k)
+            im_s = scene(g, boxes, labels, mask, h, w)
+            im_t = scene(g, *gt_boxes(g, b, h, w, n_boxes, k), h, w)
+            im_t = (im_t.float() * 0.55 + 200 * 0.45).to(torch.uint8)
+        else:
+            im_s, im_t = torch.randint(0, 256, (2, b, h, w, 3), generator=g,
+                                       dtype=torch.uint8)
+            boxes, labels, mask = gt_boxes(g, b, h, w, n_boxes, k)
+        bs = dict(images=im_s, sizes=torch.tensor([[h, w]] * b,
+                                                  dtype=torch.int32),
                   boxes=boxes, labels=labels, mask=mask)
         on = lambda d: {k_: v.to(device) for k_, v in d.items()}  # noqa: E731
-        return on(bs), on(dict(images=ims[1]))
+        return on(bs), on(dict(images=im_t))
 
     def delta_bound(got, want, rel_tensor, rel_all):
         """max over tensors of |got - want| / (rel_tensor * max|want| of
@@ -1027,16 +1061,26 @@ def main(argv=None):
         torch.cuda.empty_cache()
         cfg = c2f("float32")
         det, opt, sched, step = train_setup(cfg, dev)
-        batches = [train_batches(4, H, W, s.seed + 10 + i, dev, n_boxes=100)
-                   for i in range(2)]
+        batches = [train_batches(4, H, W, s.seed + 10 + i, dev, n_boxes=100,
+                                 k=16, scenes=True) for i in range(2)]
         frozen = {k for k, p in det.named_parameters() if not p.requires_grad}
-        start = {k: p.detach().clone() for k, p in det.named_parameters()}
+        # the seeded state, which p_train_time returns to before each step
+        init = {k: v.detach().clone() for k, v in det.state_dict().items()
+                if k not in frozen}
+        start = {k: init[k] if k in init else p.detach().clone()
+                 for k, p in det.named_parameters()}
         proto0 = det.prototype.clone()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
         proto = det.proto_state()
-        variants = (False,) * 3 + (True,) * 3
+        # True first: the seeded act maps are confident, so in the first
+        # step target DBSCAN keeps candidates and GST has nodes. A step from
+        # a random init teaches the act head background nearly everywhere
+        # (after it target DBSCAN keeps few or no candidates), which a
+        # real run leaves behind long before the AP50 gate opens the target
+        # branch; p_train_time times every True step from the seeded state
+        variants = (True,) * 3 + (False,) * 3
         real_target = cg_mod.sample_target_nodes
         real_dbscan = sampling.density_cluster_drop_first
         target_nodes, dbscan = [], []
@@ -1064,20 +1108,22 @@ def main(argv=None):
                 bad = {k: v for k, v in host.items() if not math.isfinite(v)}
                 assert not bad, bad
                 assert ("transfer_loss_gt" in host) == ft
+                if i == 0:  # GST ran on a non-empty node set
+                    assert host["transfer_loss_gt"] > 0, host
         finally:
             cg_mod.sample_target_nodes = real_target
             sampling.density_cluster_drop_first = real_dbscan
-        # with seeded random weights the act maps are near-uniform, and at
-        # this size DBSCAN may put every candidate in one component, which
-        # it drops: then no target node, and the GST gate is 0
-        s.say("train_target_nodes_valid", [int(n) for n in target_nodes])
+        nodes = [int(n) for n in target_nodes]
+        s.say("train_target_nodes_valid", nodes)
         s.say("train_dbscan_candidates_kept",
               [tuple(int(v) for v in c) for c in dbscan])
+        assert len(nodes) == variants.count(True) and nodes[0] > 0, nodes
         torch.cuda.synchronize()
         launched = counts()
         s.say("train_main_launches", launched)
         assert launched["vgg_stem_fused"] == 2 * len(variants), launched
         assert not any(v for k, v in launched.items() if k != "vgg_stem_fused")
+        per_step = launched["vgg_stem_fused"] // len(variants)
         for ft in (False, True):  # no host round trip inside a step
             gen = torch.Generator(device=dev).manual_seed(2000 + ft)
             torch.cuda.synchronize()
@@ -1103,7 +1149,8 @@ def main(argv=None):
         assert float((proto.prototype - proto0).abs().max()) > 0
         s.say("train_peak_mem_gib", torch.cuda.max_memory_allocated() / 2 ** 30)
         st["train"] = (cfg, det, opt, sched, step, batches)
-        st["train_launches"] = launched
+        st["train_init"] = init
+        st["train_k2_per_step"] = per_step
 
     class ValSet:
         """A COCO-style validation set of seeded GT boxes, with the
@@ -1185,21 +1232,57 @@ def main(argv=None):
             if k["name"] in ("nms_sorted", "vgg_stem_fused"):
                 k["validation_launches_per_pass"] = vals[0][0][k["name"]]
             if k["name"] == "vgg_stem_fused":
-                k["train_launches_per_step"] = 2
+                k["train_launches_per_step"] = st["train_k2_per_step"]
 
     def p_train_time():
+        """Every timed step starts from the seeded state of
+        ``p_train_main`` (restored outside the timed span, the momentum
+        kept), where GST has target nodes: the True variant times the
+        branch it is named for."""
         cfg, det, opt, sched, step, batches = st["train"]
+        init = st["train_init"]
         bs, bt = batches[0]
         targets = {k: bs[k] for k in ("boxes", "labels", "mask")}
         n_img = bs["images"].shape[0] + bt["images"].shape[0]
+
+        def restore():
+            with torch.no_grad():
+                sd = det.state_dict()
+                for k, v in init.items():
+                    sd[k].copy_(v)
+            torch.cuda.synchronize()
+
+        def timed(fn, n, warmup=1):
+            """Mean ms of fn() over n calls after warmup, each from the
+            seeded state; fn's results are returned."""
+            times, outs = [], []
+            for i in range(warmup + n):
+                restore()
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                out = fn()
+                e1.record()
+                torch.cuda.synchronize()
+                if i >= warmup:
+                    times.append(e0.elapsed_time(e1))
+                    outs.append(out)
+            return sum(times) / len(times), outs
+
         for ft in (False, True):
             gen = torch.Generator(device=dev).manual_seed(3000 + ft)
-            ms = cuda_time(lambda: step(det.proto_state(), bs, bt,
-                                        forward_target=ft, generator=gen), 5, 2)
+            ms, outs = timed(lambda: step(det.proto_state(), bs, bt,
+                                          forward_target=ft,
+                                          generator=gen)[1], 5)
+            if ft:
+                transfer = [float(m["transfer_loss_gt"]) for m in outs]
+                s.say("train_step_ft1_transfer_loss_gt", transfer)
+                assert min(transfer) > 0, transfer
             s.say(f"train_step_ft{int(ft)}_ms", ms)
             s.say(f"train_step_ft{int(ft)}_img_s", n_img * 1e3 / ms)
             parts = {}
             for rep in range(4):  # the step cut at its parts; rep 0 warms up
+                restore()
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
                 ev[0].record()
                 ls, fs, acs, sms, new_proto = det.forward_train(
@@ -1225,6 +1308,7 @@ def main(argv=None):
                 torch.cuda.synchronize()
                 names = ("g_source", "d_source", "g_target", "d_target",
                          "backward", "optimizer")
+                assert not ft or float(lt["transfer_loss"]) > 0
                 if rep:
                     for j, name in enumerate(names):
                         parts.setdefault(name, []).append(
@@ -1239,6 +1323,7 @@ def main(argv=None):
             captured.append((a, k))
             return real(*a, **k)
 
+        restore()
         cg_mod.sample_target_nodes = capture
         try:
             with torch.no_grad():
@@ -1248,8 +1333,11 @@ def main(argv=None):
             cg_mod.sample_target_nodes = real
         a, k = captured[0]
         with torch.no_grad():
+            n_nodes = int(real(*a, **k)[2].sum())
             s.say("sample_target_nodes_ms",
                   cuda_time(lambda: real(*a, **k), 10, 2))
+        s.say("sample_target_nodes_valid", n_nodes)
+        assert n_nodes > 0
         s.say("train_timing_peak_mem_gib",
               torch.cuda.max_memory_allocated() / 2 ** 30)
 

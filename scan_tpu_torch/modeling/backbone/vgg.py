@@ -10,8 +10,8 @@ fp path: stage 1 (conv1_1, ReLU, conv1_2, ReLU, pool) goes through
 weights packed once per weight version. Stages 1-2 (conv0..conv3) are built
 frozen, ``requires_grad`` False, as ``scan_tpu``'s solver freezes a VGG body
 (``solver/build.py:59-100``, FREEZE_CONV_BODY_AT 2). So a training forward
-runs K2 too: its output needs no gradient. A caller that unfreezes stage 1
-gets the plain convs there (``_stage1_fp``).
+runs K2 too: its output needs no gradient. K2 has no backward, so a
+training forward with stage 1 unfrozen raises (``fused_stem``).
 
 int8 path (``quant``): stages 2-5 are int8 convs, and stage 1 follows
 ``scan_tpu``'s ``_stage1_s2d`` (``vgg.py:236-528``) branch for branch, with
@@ -55,7 +55,7 @@ from ...ops.cuda.conv0_kernel import conv0_s8, pack_weight
 from ...ops.cuda.phase_max_kernel import pair_phase_max_s8, phase_max_requant
 from ...ops.cuda.stem_int8_kernel import fused_stem_int8
 from ...ops.cuda.stem_int8_kernel import pack_weights as pack_stem_int8
-from ...ops.cuda.stem_kernel import STEM_CH, STEM_IN, fused_stem, reference_stem
+from ...ops.cuda.stem_kernel import STEM_CH, STEM_IN, fused_stem
 from ...ops.cuda.stem_kernel import pack_weights as pack_stem
 from ...ops.quant import (QuantizedActivation, int8_conv, max_pool_2x2,
                           quantize_activation)
@@ -129,17 +129,12 @@ class VGG16(nn.Module):
         return tuple(outs)
 
     def _stage1_fp(self, x):
-        """Stage 1 through K2 when no gradient is asked of it: grad mode
-        off, or the stem frozen and an input that needs none (the default,
-        in training too). With grad mode on and a stem weight or the input
-        requiring grad, the plain convs (``reference_stem``) run instead,
-        chosen here by ``requires_grad``, so that the gradient exists."""
+        """Stage 1 through K2 (``fused_stem``), in inference and in
+        training, where the stem is frozen. ``fused_stem`` raises when grad
+        mode is on and the input or a stem weight requires grad."""
         c0, c1 = self.conv0, self.conv1
         weights = (c0.weight, c0.bias, c1.weight, c1.bias)
         dt = c0.weight.dtype
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (x,) + weights):
-            return reference_stem(x, *weights, out_dtype=dt)
         return fused_stem(x, *weights, out_dtype=dt,
                           packed=self._packed(pack_stem, *weights))
 

@@ -103,8 +103,7 @@ def fused_stem(x, w0, b0, w1, b1, out_dtype=torch.float32, packed=None):
     makes this raise on every device (``refuse_autograd``) rather than give
     an output autograd would treat as a constant: training runs it on the
     frozen stem (``VGG16`` builds conv0..conv3 with ``requires_grad``
-    False), and a caller that wants the stem's gradient runs
-    ``reference_stem``.
+    False).
     """
     refuse_autograd("fused_stem", x, w0, b0, w1, b1)
     if x.device.type == "cpu":

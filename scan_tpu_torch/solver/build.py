@@ -8,9 +8,10 @@ enters the momentum trace, as ``optax.add_decayed_weights`` before
 groups. A parameter is a bias when the last component of its name is
 ``bias``, as ``scan_tpu``'s ``path[-1] == "bias"``: GroupNorm's and
 LayerNorm's ``bias`` are biases, ``TorchRNN``'s ``bias_ih_l0`` is not. The
-frozen parameters (``_frozen_checker``: VGG stages 1-2) get
-``requires_grad_(False)`` and stay out of the optimizer, so they take
-neither an update nor weight decay, as under optax's ``set_to_zero``.
+parameters that do not require grad stay out of the optimizer, so they
+take neither an update nor weight decay, as under optax's ``set_to_zero``:
+the model decides which are frozen (``VGG16`` builds stages 1-2,
+conv0..conv3, frozen, as ``scan_tpu``'s ``_frozen_checker`` freezes them).
 
 ``make_lr_scheduler`` gives each group WarmupMultiStep as a ``LambdaLR``
 factor: the optimizer's step k (k = 0, 1, ...) runs at
@@ -19,8 +20,6 @@ schedule takes at ``count`` = k updates so far.
 """
 
 import torch
-
-from ..modeling.backbone.vgg import N_FROZEN_CONVS
 
 # module group -> its SOLVER node
 _GROUP_TO_SOLVER_KEY = {
@@ -63,35 +62,15 @@ def _module_group(top: str) -> str:
     raise KeyError(top)
 
 
-def _frozen_checker(cfg):
-    """Predicate over (top module, name components) for the parameters the
-    reference builds with ``requires_grad=False`` (``build.py:59-100``): a
-    VGG body freezes stages 1-2, conv0..conv3."""
-    body = cfg.MODEL.BACKBONE.CONV_BODY
-    if not body.startswith("VGG"):
-        raise NotImplementedError(f"backbone {body!r} is not ported")
-
-    def is_frozen(top, path):
-        if top != "backbone" or "body" not in path:
-            return False
-        return any(c.startswith("conv") and c[4:].isdigit()
-                   and int(c[4:]) < N_FROZEN_CONVS for c in path)
-
-    return is_frozen
-
-
 def make_optimizer(cfg, model) -> torch.optim.SGD:
-    """One SGD over ``model``'s trainable parameters, a param group per
-    (module group, is-bias) in ``scan_tpu``'s label order. Each group
-    carries its ``label`` ("backbone", "backbone/bias", ...)."""
-    is_frozen = _frozen_checker(cfg)
+    """One SGD over ``model``'s parameters that require grad, a param
+    group per (module group, is-bias) in ``scan_tpu``'s label order. Each
+    group carries its ``label`` ("backbone", "backbone/bias", ...)."""
     members = {}
     for name, p in model.named_parameters():
-        top, *path = name.split(".")
-        if is_frozen(top, path):
-            p.requires_grad_(False)
         if not p.requires_grad:
             continue
+        top, *path = name.split(".")
         is_bias = path[-1] == "bias"
         members.setdefault((_module_group(top), is_bias), []).append(p)
     groups = []

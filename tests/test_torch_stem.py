@@ -79,10 +79,11 @@ def test_fused_stem_refuses_autograd():
         stem_kernel.fused_stem(x, w0, b0, w1, b1)
 
 
-def test_vgg_stem_is_frozen_and_unfreezing_runs_the_plain_convs(monkeypatch):
+def test_vgg_stem_is_frozen_and_unfreezing_it_raises(monkeypatch):
     """VGG16 builds conv0..conv3 frozen, so a training forward runs the
-    stem wrapper (K2 on the card); a caller that unfreezes stage 1 gets the
-    plain convs and a gradient for them."""
+    stem wrapper (K2 on the card) and the layers above it get gradients; a
+    caller that unfreezes stage 1 gets the wrapper's refusal, never a
+    silent switch to the plain convs."""
     from scan_tpu_torch.modeling.backbone import vgg as vgg_mod
 
     net = vgg_mod.VGG16(width_div=8)
@@ -97,5 +98,9 @@ def test_vgg_stem_is_frozen_and_unfreezing_runs_the_plain_convs(monkeypatch):
     net(x)[-1].sum().backward()
     assert calls == [1] and net.conv4.weight.grad is not None
     net.conv0.requires_grad_(True)
-    net(x)[-1].sum().backward()
-    assert calls == [1] and net.conv0.weight.grad is not None
+    with pytest.raises(RuntimeError, match="no backward"):
+        net(x)
+    assert calls == [1, 1] and net.conv0.weight.grad is None
+    with torch.no_grad():
+        net(x)
+    assert calls == [1, 1, 1]

@@ -74,14 +74,42 @@ final ``{"ok": true, ...}`` line:
      trained parameters moved and the frozen ones not, the prototype
      counter and values advanced; peak device memory;
  14. ``train_loop_with_validation``: ``do_train_da`` for 4 iterations with
-     SOLVER.VAL_ITER 2 and a seeded validation set of 4 images at 800x1344
-     (COCO AP through ``engine/inference.py::inference``): K1 and K2 launch
-     in each validation, K2 twice a training step; AP50 printed;
+     SOLVER.VAL_ITER 2 and a seeded validation set of 4 frames at 800x1344,
+     written to disk as PNGs with a COCO json and read by the port's
+     ``COCODataset`` and eval loader (COCO AP through
+     ``engine/inference.py::inference``): K1 and K2 launch in each
+     validation, K2 twice a training step; AP50 printed;
  15. ``train_timing``: ms per DA step and img/s (source + target) in each
      variant, CUDA events after warm-up, each step from phase 13's seeded
      state (so the True variant's GST has nodes, checked); the step split
      into G source, D source, G target, D target, backward and optimizer;
-     ``sample_target_nodes`` alone at full width.
+     ``sample_target_nodes`` alone at full width;
+ 16. ``disk_tree``: a Cityscapes-shaped C2F tree under a temporary directory
+     at the catalog's paths (``SCAN_TPU_DATA_DIR``): 8 source and 8 fogged
+     target training frames and 32 fogged validation frames, phase 13's
+     seeded scenes as 1024x2048 PNGs (written with ``zlib``, no Pillow)
+     with COCO jsons; the test resize (666x1332) and the 672x1344 buckets
+     asserted;
+ 17. ``cli_train_da_from_disk``: ``tools/train_net_da.py``'s ``main`` on the
+     C2F config at full width, float32, batch 4 + 4, VAL_ITER 2,
+     CHECKPOINT_PERIOD 2: MAX_ITER 4, then the same command with MAX_ITER
+     6, which must restore iteration 4 from ``last_checkpoint`` with
+     parameters, momentum and scheduler state equal to the file's, then a
+     straight 6-iteration run; counters zeroed before each run (K2 twice a
+     step, K1 and K2 in each validation); the resumed run's source and
+     target index streams equal the straight run's, its last two
+     ``loss_total`` within 1e-3 relative of the straight run's; the
+     iteration time and the data wait per step (host blocked on the loader);
+ 18. ``cli_test_net_from_disk``: ``tools/test_net.py``'s ``main`` on the
+     resumed run's ``model_final``, bf16, precision, batch 8, over the 32
+     frames, fp (K1 and K2 launch) and int8 with PALLAS_STEM_INT8 and one
+     calibration batch (K5 and K1, not K2); its last stdout line is JSON
+     with AP and AP50; the native library is the one keyed for this host and
+     resized every frame, and decoded them where it has the codecs (else
+     Pillow did); the eval through the loader end to end in img/s, first
+     pass (decode and resize) and second (the eval cache), the loader's
+     wait per batch, the pageable host->card copy of a batch, the forward
+     alone at 672x1344, one PNG decode and one resize.
 
 Every number is printed with the card's name and power limit; everything is
 also written to ``chiprun_out/chip_smoke.json``. The line before the last is
@@ -89,21 +117,31 @@ the per-kernel JSON; the last line is the device JSON.
 """
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
+import io
 import itertools
 import json
 import math
+import os
 import re
+import shutil
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
+import zlib
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 C2F = HERE / "configs" / "scan" / "scan_vgg16_cityscapace_to_foggy.yaml"
 H, W = 800, 1344
+CITY_H, CITY_W = 1024, 2048  # Cityscapes' frame size
+CATEGORIES = ("person", "rider", "car", "truck", "bus", "train", "motorcycle",
+              "bicycle")
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_S = 67e12  # CUDA cores
 PEAK_BF16_S = 989e12  # tensor cores, dense
@@ -206,6 +244,52 @@ def probe_ms(lib, symbol, n_ptrs, ptrs, b, h, w):
     return cuda_time(call, 10)
 
 
+def write_png(path, rgb):
+    """(h, w, 3) uint8 -> an 8-bit RGB PNG, with the standard library's
+    zlib only (no Pillow): each row filter 0, one IDAT chunk."""
+    import numpy as np
+
+    h, w, _ = rgb.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           np.ascontiguousarray(rgb).reshape(h, w * 3)], 1)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    Path(path).write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+        + chunk(b"IEND", b""))
+
+
+def write_coco(ann_file, img_dir, frames, boxes, labels):
+    """``frames`` (n, h, w, 3) uint8 as PNGs in ``img_dir`` and their GT
+    (integer xyxy boxes, ends exclusive as the scenes fill them; labels
+    1..8) as a COCO json at ``ann_file``. Returns the bytes written."""
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(os.path.dirname(ann_file), exist_ok=True)
+    images, annotations, n_bytes = [], [], 0
+    for i, frame in enumerate(frames):
+        name = f"frame_{i:04d}.png"
+        path = os.path.join(img_dir, name)
+        write_png(path, frame)
+        n_bytes += os.path.getsize(path)
+        h, w = frame.shape[:2]
+        images.append(dict(id=i + 1, file_name=name, height=h, width=w))
+        for (x0, y0, x1, y1), c in zip(boxes[i], labels[i]):
+            x1, y1 = min(x1, w), min(y1, h)
+            annotations.append(dict(
+                id=len(annotations) + 1, image_id=i + 1, category_id=int(c),
+                bbox=[x0, y0, x1 - x0, y1 - y0], area=(x1 - x0) * (y1 - y0),
+                iscrowd=0))
+    with open(ann_file, "w") as f:
+        json.dump(dict(images=images, annotations=annotations, categories=[
+            dict(id=k + 1, name=n) for k, n in enumerate(CATEGORIES)]), f)
+    return n_bytes
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -247,6 +331,8 @@ def main(argv=None):
     dev = torch.device("cuda")
     print(s.card, flush=True)
     st = {}  # state handed from phase to phase
+    # data trees and checkpoints; removed when the script ends
+    tmp_root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
 
     int8_kernels = {
         "conv0_s8": conv0_kernel.conv0_s8,
@@ -906,6 +992,8 @@ def main(argv=None):
                    lambda x: det.backbone.body._stage1_int8(x))
 
     # ---- 12-15: the DA training step ------------------------------------
+    from scan_tpu_torch.data import build as data_build
+    from scan_tpu_torch.data.datasets.coco import COCODataset
     from scan_tpu_torch.engine import inference as inference_mod
     from scan_tpu_torch.engine import trainer
     from scan_tpu_torch.engine.train_step import make_da_train_step
@@ -1152,48 +1240,30 @@ def main(argv=None):
         st["train_init"] = init
         st["train_k2_per_step"] = per_step
 
-    class ValSet:
-        """A COCO-style validation set of seeded GT boxes, with the
-        ``COCODataset`` API the evaluator reads."""
-
-        def __init__(self, n, seed):
-            g = torch.Generator().manual_seed(seed)
-            self.images = torch.randint(0, 256, (n, H, W, 3), generator=g,
-                                        dtype=torch.uint8).numpy()
-            self.id_to_img_map = {i: 100 + i for i in range(n)}
-            self.contiguous_category_id_to_json_id = {c: c for c in range(1, 9)}
-            anns = {}
-            for i in range(n):
-                xy = torch.rand(6, 2, generator=g) * torch.tensor([W * 0.7, H * 0.7])
-                wh = torch.rand(6, 2, generator=g) * 200 + 20
-                cat = torch.randint(1, 9, (6,), generator=g)
-                anns[100 + i] = [dict(bbox=[*map(float, p), *map(float, q)],
-                                      category_id=int(c), iscrowd=0,
-                                      area=float(q[0] * q[1]))
-                                 for p, q, c in zip(xy, wh, cat)]
-            self.coco = type("Coco", (), dict(
-                img_to_anns=anns, get_cat_ids=lambda _self: list(range(1, 9))))()
-
-        def __len__(self):
-            return len(self.images)
-
-    class ValLoader:
-        def __init__(self, dataset, batch):
-            self.dataset, self.batch = dataset, batch
-
-        def __iter__(self):
-            for i in range(0, len(self.dataset), self.batch):
-                n = min(self.batch, len(self.dataset) - i)
-                yield dict(images=self.dataset.images[i:i + n],
-                           sizes=np.asarray([[H, W]] * n, np.int32),
-                           scales=np.ones((n, 2), np.float32),
-                           indices=np.arange(i, i + n))
+    def val_tree(root, n, seed):
+        """A COCO validation set on disk: n seeded noise frames at H x W
+        with 6 GT boxes each, read back through the port's ``COCODataset``
+        and eval loader (batch 2)."""
+        g = torch.Generator().manual_seed(seed)
+        frames = torch.randint(0, 256, (n, H, W, 3), generator=g,
+                               dtype=torch.uint8).numpy()
+        boxes, labels = [], []
+        for _ in range(n):
+            xy = torch.rand(6, 2, generator=g) * torch.tensor([W * 0.7, H * 0.7])
+            wh = torch.rand(6, 2, generator=g) * 200 + 20
+            boxes.append(torch.cat([xy, xy + wh], -1).int().tolist())
+            labels.append(torch.randint(1, 9, (6,), generator=g).tolist())
+        ann = str(root / "annotations.json")
+        write_coco(ann, str(root / "images"), frames, boxes, labels)
+        return COCODataset(ann, str(root / "images"),
+                           remove_images_without_annotations=False)
 
     def p_train_loop():
         cfg, det, _, _, step, batches = st["train"]
         cfg = cfg.clone()
         cfg.SOLVER.MAX_ITER, cfg.SOLVER.VAL_ITER = 4, 2
-        loader_val = ValLoader(ValSet(4, s.seed + 20), 2)
+        loader_val = data_build.DetectionLoader(
+            val_tree(tmp_root / "val_800x1344", 4, s.seed + 20), cfg, False, 2)
         real = inference_mod.inference
         vals = []
 
@@ -1341,6 +1411,362 @@ def main(argv=None):
         s.say("train_timing_peak_mem_gib",
               torch.cuda.max_memory_allocated() / 2 ** 30)
 
+    # ---- 16-18: the port's own entry points, from files on disk ---------
+    from scan_tpu_torch import native
+    from scan_tpu_torch.config.paths_catalog import DatasetCatalog
+    from scan_tpu_torch.data import transforms
+    from scan_tpu_torch.data.datasets import coco as coco_mod
+    from scan_tpu_torch.engine import train_step as train_step_mod
+    from scan_tpu_torch.tools import test_net, train_net_da
+    from scan_tpu_torch.utils.checkpoint import Checkpointer
+
+    def p_disk_tree():
+        """Cityscapes-shaped C2F tree at the catalog's paths: 8 source and
+        8 fogged target training frames, 32 fogged validation frames, PNG
+        at 1024x2048, phase 13's seeded scenes with 16 GT boxes a frame."""
+        root = tmp_root / "datasets"
+        t0 = time.time()
+        n_bytes = 0
+        specs = (("cityscapes_train_cocostyle", 8, False),
+                 ("cityscapes_foggy_train_cocostyle", 8, True),
+                 ("cityscapes_foggy_val_cocostyle", 32, True))
+        DatasetCatalog.DATA_DIR = str(root)
+        os.environ["SCAN_TPU_DATA_DIR"] = str(root)
+        for k, (name, n, fog) in enumerate(specs):
+            args = DatasetCatalog.get(name)["args"]
+            g = torch.Generator().manual_seed(s.seed + 40 + k)
+            frames, boxes, labels = [], [], []
+            for _ in range(n // 8):
+                b, lab, mask = gt_boxes(g, 8, CITY_H, CITY_W, 16, 16)
+                im = scene(g, b, lab, mask, CITY_H, CITY_W)
+                if fog:
+                    im = (im.float() * 0.55 + 200 * 0.45).to(torch.uint8)
+                frames += list(im.numpy())
+                boxes += b.int().tolist()
+                labels += lab.tolist()
+            n_bytes += write_coco(args["ann_file"], args["root"], frames,
+                                  boxes, labels)
+            st.setdefault("disk_frames", {})[name] = frames[0]
+        s.say("disk_tree", f"{sum(n for _, n, _ in specs)} PNG frames at "
+              f"{CITY_H}x{CITY_W}, {n_bytes / 2 ** 20:.1f} MiB, written in "
+              f"{time.time() - t0:.2f} s")
+        cfg = c2f()
+        val = data_build.make_data_loaders_test(cfg)[0]
+        src = data_build.make_data_loader_source(cfg)
+        frame = val.dataset.load_image(0)
+        assert frame.shape == (CITY_H, CITY_W, 3)
+        assert np.array_equal(
+            frame, st["disk_frames"]["cityscapes_foggy_val_cocostyle"])
+        resized = transforms.get_resize_hw(CITY_W, CITY_H, 800, 1333)
+        s.say("disk_tree_shapes", f"resize={resized} test_bucket="
+              f"{val.buckets} train_bucket={src.buckets}")
+        assert resized == (666, 1332)
+        assert val.buckets == [(672, 1344)] and src.buckets == [(672, 1344)]
+        assert len(val.dataset) == 32
+
+    @contextlib.contextmanager
+    def instrumented():
+        """Record, while the CLIs run: each loader iteration's wait for
+        every batch and the indices it yielded; each training step's call
+        time and loss_total (a device scalar, read afterwards); launches
+        per validation; each checkpoint restore, held against its file;
+        and which decode and resize ran (native or Pillow)."""
+        rec = dict(streams=[], steps=[], vals=[], restores=[],
+                   use={k: 0 for k in ("native_decode", "pil_decode",
+                                       "native_resize", "pil_resize")})
+        real = dict(iter=data_build.DetectionLoader.__iter__,
+                    make_step=train_step_mod.make_da_train_step,
+                    inference=inference_mod.inference,
+                    load=Checkpointer.load,
+                    decode=native.decode_image,
+                    pil_decode=coco_mod.pil_decode,
+                    resize=native.resize_image_u8,
+                    pil_resize=transforms.pil_resize)
+
+        def timed_iter(loader):
+            stream = dict(train=loader.is_train, seed=loader.seed, waits=[],
+                          indices=[])
+            rec["streams"].append(stream)
+            inner = real["iter"](loader)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(inner)
+                    except StopIteration:
+                        return
+                    stream["waits"].append(time.perf_counter() - t0)
+                    stream["indices"].append(batch["indices"].tolist())
+                    yield batch
+            finally:
+                inner.close()
+
+        def make_step(*a, **k):
+            step = real["make_step"](*a, **k)
+
+            def timed_step(*sa, **sk):
+                t0 = time.perf_counter()
+                proto, metrics = step(*sa, **sk)
+                rec["steps"].append((t0, metrics["loss_total"]))
+                return proto, metrics
+            return timed_step
+
+        def counted(detector, data_loader):
+            torch.cuda.synchronize()
+            c0 = counts()
+            out = real["inference"](detector, data_loader)
+            torch.cuda.synchronize()
+            rec["vals"].append({k: v - c0[k] for k, v in counts().items()})
+            return out
+
+        def checked_load(ckpt, f=None, load_dis=True, load_opt_sch=True):
+            it = real["load"](ckpt, f, load_dis, load_opt_sch)
+            path = ckpt.get_checkpoint_file() if ckpt.has_checkpoint() else f
+            entry = dict(iteration=it, path=path)
+            if path and ckpt.optimizer is not None:
+                saved = torch.load(path, map_location="cpu", weights_only=True)
+                own = ckpt.detector.state_dict()
+                entry["model_diff"] = [k for k, v in saved["model"].items()
+                                       if not torch.equal(own[k].cpu(), v)]
+                mom = ckpt.optimizer.state_dict()["state"]
+                entry["momentum_diff"] = [
+                    i for i, v in saved["optimizer"]["state"].items()
+                    if not torch.equal(mom[i]["momentum_buffer"].cpu(),
+                                       v["momentum_buffer"])]
+                entry["scheduler_equal"] = \
+                    ckpt.scheduler.state_dict() == saved["scheduler"]
+            rec["restores"].append(entry)
+            return it
+
+        def use(key, fn):
+            def wrapped(*a, **k):
+                out = fn(*a, **k)
+                if key != "native_decode" or out is not None:
+                    rec["use"][key] += 1
+                return out
+            return wrapped
+
+        data_build.DetectionLoader.__iter__ = timed_iter
+        train_step_mod.make_da_train_step = make_step
+        inference_mod.inference = counted
+        Checkpointer.load = checked_load
+        native.decode_image = use("native_decode", real["decode"])
+        coco_mod.pil_decode = use("pil_decode", real["pil_decode"])
+        native.resize_image_u8 = use("native_resize", real["resize"])
+        transforms.pil_resize = use("pil_resize", real["pil_resize"])
+        try:
+            yield rec
+        finally:
+            data_build.DetectionLoader.__iter__ = real["iter"]
+            train_step_mod.make_da_train_step = real["make_step"]
+            inference_mod.inference = real["inference"]
+            Checkpointer.load = real["load"]
+            native.decode_image = real["decode"]
+            coco_mod.pil_decode = real["pil_decode"]
+            native.resize_image_u8 = real["resize"]
+            transforms.pil_resize = real["pil_resize"]
+
+    def check_native(rec):
+        """The native library was built for this host and resized every
+        frame; decode was native where the library has the codecs, else
+        Pillow (the card's machine lacks libpng's and libjpeg's headers)."""
+        lib = native.get_lib()
+        assert lib.path == native.target()[0], (lib.path, native.target())
+        codecs = native.has_codecs()
+        use = rec["use"]
+        assert use["native_resize"] > 0 and use["pil_resize"] == 0, use
+        if codecs:
+            assert use["native_decode"] > 0 and use["pil_decode"] == 0, use
+        else:
+            assert use["native_decode"] == 0 and use["pil_decode"] > 0, use
+        return dict(library=lib.path.name, codecs=codecs, **use)
+
+    def cli_train_run(rec, out, max_iter, period):
+        """``train_net_da.main`` on the C2F config from the disk tree:
+        full width, float32, batch 4 + 4; launches counted around it."""
+        n0 = (len(rec["steps"]), len(rec["vals"]), len(rec["streams"]))
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.time()
+        train_net_da.main(["--config-file", str(C2F), "OUTPUT_DIR", str(out),
+                           "TPU.COMPUTE_DTYPE", "float32",
+                           "SOLVER.IMS_PER_BATCH", "4", "SOLVER.VAL_ITER", "2",
+                           "SOLVER.CHECKPOINT_PERIOD", str(period),
+                           "SOLVER.MAX_ITER", str(max_iter)])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        total = counts()
+        steps = rec["steps"][n0[0]:]
+        vals = rec["vals"][n0[1]:]
+        streams = [x for x in rec["streams"][n0[2]:] if x["train"]]
+        in_val = {k: sum(v[k] for v in vals) for k in total}
+        train_k2 = total["vgg_stem_fused"] - in_val["vgg_stem_fused"]
+        for v in vals:
+            assert v["nms_sorted"] > 0 and v["vgg_stem_fused"] > 0, v
+        assert not any(total[k] for k in int8_kernels), total
+        assert train_k2 == 2 * len(steps), (train_k2, len(steps))
+        # data wait per step: source + target, blocked in next()
+        waits = [sum(x["waits"][i] for x in streams)
+                 for i in range(len(steps))]
+        return dict(steps=steps, vals=vals, streams=streams, waits=waits,
+                    wall=wall, total=total, train_k2=train_k2)
+
+    def p_cli_train():
+        for key in ("train", "train_init"):  # free phase 13's model
+            st.pop(key, None)
+        torch.cuda.empty_cache()
+        out, straight_out = tmp_root / "c2f_train", tmp_root / "c2f_straight"
+        with instrumented() as rec:
+            a = cli_train_run(rec, out, 4, 2)
+            saved = sorted(os.listdir(out))
+            s.say("cli_train_run4", f"wall={a['wall']:.2f} s launches="
+                  f"{a['total']} K2_in_training={a['train_k2']} "
+                  f"validations={len(a['vals'])} files={saved}")
+            assert len(a["steps"]) == 4 and len(a["vals"]) == 2
+            assert {"model_0000002.pth", "model_0000004.pth",
+                    "model_final.pth", "last_checkpoint"} <= set(saved)
+            assert Checkpointer(str(out), None).get_checkpoint_file() \
+                .endswith("model_final.pth")
+            b = cli_train_run(rec, out, 6, 2)
+            restore = rec["restores"][-1]
+            s.say("cli_train_resume", restore)
+            assert restore["iteration"] == 4, restore
+            assert not restore["model_diff"] and not restore["momentum_diff"]
+            assert restore["scheduler_equal"]
+            assert len(b["steps"]) == 2
+            c = cli_train_run(rec, straight_out, 6, 100)
+            assert len(c["steps"]) == 6 and c["train_k2"] == 12
+            st["cli_weight"] = str(out / "model_final.pth")
+            st["cli_use"] = check_native(rec)
+        s.say("cli_native", st["cli_use"])
+        for tag, run in (("resumed", b), ("straight", c)):
+            for kind, seed in (("source", 1234), ("target", 1235)):
+                idx = [x["indices"] for x in run["streams"] if x["seed"] == seed]
+                assert len(idx) == 1, (tag, kind, len(idx))
+                run[kind] = idx[0]
+        assert b["source"] == c["source"][4:] and b["target"] == c["target"][4:]
+        s.say("cli_train_streams", f"resumed source={b['source']} "
+              f"target={b['target']}: equal to the straight run's "
+              "iterations 4-5")
+        got = [float(l) for _, l in b["steps"]]
+        want = [float(l) for _, l in c["steps"]][4:]
+        worst = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        s.say("cli_train_loss_total", f"resumed={got} straight={want} "
+              f"worst_rel={worst}")
+        # the card's cuDNN may sum a convolution's gradient in another
+        # order from run to run: the bound is 1e-3 relative, not equality
+        assert worst <= 1e-3, worst
+        # iteration wall: from one step's call to the next (the loop waits
+        # on the step before, so this is the card's step plus the data
+        # wait); the iterations that end with a validation or a checkpoint
+        # and the first (cuDNN's first calls) are left out
+        t = [t0 for t0, _ in c["steps"]]
+        clean = [i for i in range(1, len(t) - 1) if (i + 1) % 2]
+        iter_ms = [1e3 * (t[i + 1] - t[i]) for i in clean]
+        wait_ms = [1e3 * c["waits"][i + 1] for i in clean]
+        s.say("cli_train_iteration_ms", iter_ms)
+        s.say("cli_train_data_wait_ms_per_step", {
+            "straight_all": [1e3 * w for w in c["waits"]],
+            "clean": wait_ms})
+        st["cli_train"] = dict(iter_ms=iter_ms, wait_ms=wait_ms,
+                               launches=c["total"])
+        shutil.rmtree(straight_out, ignore_errors=True)
+
+    def p_cli_test():
+        out = tmp_root / "c2f_test"
+        base = ["--config-file", str(C2F), "MODEL.WEIGHT", st["cli_weight"],
+                "OUTPUT_DIR", str(out), "TPU.COMPUTE_DTYPE", "bfloat16",
+                "TEST.MODE", "precision", "TEST.IMS_PER_BATCH", "8"]
+        int8 = ["TPU.INT8_INFERENCE", "True", "TPU.PALLAS_STEM_INT8", "True",
+                "TPU.INT8_CALIB_BATCHES", "1"]
+        with instrumented() as rec:
+            for tag, extra in (("fp", []), ("int8", int8)):
+                buf = io.StringIO()
+                torch.cuda.synchronize()
+                zero_counts()
+                t0 = time.time()
+                with contextlib.redirect_stdout(buf):
+                    test_net.main(base + extra)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                c = counts()
+                last = buf.getvalue().strip().splitlines()[-1]
+                res = json.loads(last)
+                s.say(f"cli_test_{tag}", f"wall={wall:.2f} s launches={c} "
+                      f"restored={rec['restores'][-1]['iteration']} "
+                      f"stdout_last={last}")
+                assert {"AP", "AP50"} <= set(res), res
+                assert c["nms_sorted"] > 0, c
+                if tag == "fp":
+                    assert c["vgg_stem_fused"] > 0
+                    assert not any(c[k] for k in int8_kernels), c
+                else:
+                    assert c["fused_stem_int8"] > 0 and c["vgg_stem_fused"] == 0
+                    assert not any(c[k] for k in int8_kernels
+                                   if k != "fused_stem_int8"), c
+                st.setdefault("cli_test_launches", {})[tag] = c
+            use = check_native(rec)
+            s.say("cli_test_native", use)
+            # the loader's share: the same eval, a first pass (decode and
+            # resize) and a second (from the eval cache), end to end
+            cfg = c2f("bfloat16")
+            cfg.TEST.IMS_PER_BATCH = 8
+            det = build_detector(cfg, device=dev, seed=s.seed)
+            Checkpointer(str(out / "timing"), det).load(st["cli_weight"],
+                                                        load_dis=False)
+            loader = data_build.make_data_loaders_test(cfg)[0]
+            rates = {}
+            for pass_ in ("first", "cached"):
+                n0 = len(rec["streams"])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                preds = compute_predictions(det, loader, progress_every=0)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                waits = rec["streams"][n0]["waits"]
+                rates[pass_] = len(preds) / dt
+                s.say(f"cli_eval_{pass_}_pass", f"{len(preds)} frames, "
+                      f"{rates[pass_]:.2f} img/s end to end, loader wait "
+                      f"ms per batch {[round(1e3 * w, 2) for w in waits]}")
+                st.setdefault("cli_eval", {})[pass_] = dict(
+                    img_s=rates[pass_], wait_ms=[1e3 * w for w in waits])
+        batch = next(iter(loader))
+        images = batch["images"]
+
+        def copy():
+            return torch.as_tensor(images).to(dev)
+
+        copy_ms = cuda_time(copy, 10, 2)
+        im = copy()
+        sizes = torch.as_tensor(batch["sizes"]).to(dev)
+        fwd_ms = cuda_time(lambda: det.forward_inference(im, sizes), 5, 2)
+        path = os.path.join(loader.dataset.root,
+                            loader.dataset.get_img_info(0)["file_name"])
+        t0 = time.perf_counter()
+        for _ in range(5):
+            frame = coco_mod._load_rgb(path)
+        decode_ms = 1e3 * (time.perf_counter() - t0) / 5
+        buf = np.zeros((672, 1344, 3), np.uint8)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            native.resize_image_u8(frame, buf, 666, 1332)
+        resize_ms = 1e3 * (time.perf_counter() - t0) / 5
+        s.say("cli_eval_parts", f"pageable host->card copy of a batch "
+              f"{images.shape} u8 ({images.nbytes / 2 ** 20:.1f} MiB): "
+              f"{copy_ms:.3f} ms; forward alone at 672x1344 b8: {fwd_ms:.2f} "
+              f"ms ({8e3 / fwd_ms:.2f} img/s); decode a 1024x2048 PNG "
+              f"({'native' if use['codecs'] else 'Pillow'}): "
+              f"{decode_ms:.2f} ms; native resize to 666x1332: "
+              f"{resize_ms:.2f} ms; timing's forward at 800x1344 b8: "
+              f"{s.record.get('forward_bf16_precision_b8_img_s')} img/s")
+        st["cli_eval"].update(copy_ms=copy_ms, forward_ms=fwd_ms,
+                              decode_ms=decode_ms, resize_ms=resize_ms)
+        for k in st.get("kernels") or []:
+            for tag, c in st.get("cli_test_launches", {}).items():
+                k[f"cli_test_{tag}_launches"] = c[k["name"]]
+            if "cli_train" in st:
+                k["cli_train_launches"] = st["cli_train"]["launches"][k["name"]]
+
     s.phase("build", p_build)
     s.phase("k1_nms_vs_plain", p_nms)
     s.phase("k2_stem_vs_plain", p_stem)
@@ -1368,7 +1794,17 @@ def main(argv=None):
     else:
         s.phase("train_loop_with_validation", p_train_loop)
         s.phase("train_timing", p_train_time)
+    s.phase("disk_tree", p_disk_tree)
+    if "disk_tree" in s.failed:
+        s.failed.append("entry points from disk (skipped)")
+    else:
+        s.phase("cli_train_da_from_disk", p_cli_train)
+        if "cli_train_da_from_disk" in s.failed:
+            s.failed.append("cli_test_net_from_disk (skipped)")
+        else:
+            s.phase("cli_test_net_from_disk", p_cli_test)
 
+    shutil.rmtree(tmp_root, ignore_errors=True)
     s.record["kernels"] = st.get("kernels")
     s.record["failed"] = s.failed
     out_dir = HERE / "chiprun_out"

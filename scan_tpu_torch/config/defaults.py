@@ -31,7 +31,8 @@ _C.MODEL.FCOS_ON = False
 _C.MODEL.DA_ON = True
 _C.MODEL.RETINANET_ON = False
 _C.MODEL.KEYPOINT_ON = False
-_C.MODEL.DEVICE = "tpu"
+# The port's entry points (tools/) run here; "cpu" runs the plain path.
+_C.MODEL.DEVICE = "cuda"
 _C.MODEL.META_ARCHITECTURE = "GeneralizedRCNN"
 _C.MODEL.CLS_AGNOSTIC_BBOX_REG = False
 _C.MODEL.WEIGHT = ""

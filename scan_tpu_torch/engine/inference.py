@@ -3,11 +3,14 @@
 ``compute_predictions`` runs the detector over batches laid out as
 ``scan_tpu``'s loader yields them (``images`` uint8 NHWC, ``sizes`` (B, 2)
 [h, w], ``scales`` (B, 2) [sw, sh], ``indices`` (B,), -1 for padding slots)
-and returns predictions per index in ORIGINAL image coordinates;
-``inference`` scores them with the COCO protocol of
-``evaluation/coco_eval.py``, as the trainer's in-loop validation does. The
-device mesh, the chained dispatch and the VOC evaluator of ``scan_tpu`` are
-not ported, nor are its loaders.
+and returns predictions per index in ORIGINAL image coordinates, from any
+iterable of such batches, the port's ``data/build.py::DetectionLoader``
+among them. ``inference`` scores them with ``evaluate_dataset``: the COCO
+protocol of ``evaluation/coco_eval.py`` for a ``COCODataset``, the VOC one of
+``evaluation/voc_eval.py`` for any other dataset, as ``scan_tpu`` dispatches
+(``scan_tpu/engine/inference.py:121-126``); the trainer's in-loop
+validation calls it. The device mesh and the chained dispatch
+(``TPU.INFER_CHAIN``) of ``scan_tpu`` are not ported.
 """
 
 import logging
@@ -17,7 +20,9 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..data.datasets.coco import COCODataset
 from ..evaluation.coco_eval import evaluate_coco_dataset
+from ..evaluation.voc_eval import evaluate_voc_dataset
 
 logger = logging.getLogger("scan_tpu_torch.inference")
 
@@ -73,11 +78,17 @@ def compute_predictions(detector, data_loader,
     return predictions
 
 
+def evaluate_dataset(dataset, predictions: Dict[int, dict]):
+    """COCO metrics for a ``COCODataset``, VOC metrics for any other."""
+    if isinstance(dataset, COCODataset):
+        return evaluate_coco_dataset(dataset, predictions)
+    return evaluate_voc_dataset(dataset, predictions)
+
+
 def inference(detector, data_loader):
-    """Predictions and COCO bbox metrics, fractions in [0, 1]
+    """Predictions and metrics, fractions in [0, 1]
     (``scan_tpu/engine/inference.py:129-135``). ``data_loader`` iterates
-    batches as ``compute_predictions`` takes them and has a ``dataset`` with
-    ``scan_tpu``'s ``COCODataset`` API (see ``evaluate_coco_dataset``).
-    Returns (results, predictions)."""
+    batches as ``compute_predictions`` takes them and has the ``dataset``
+    they index. Returns (results, predictions)."""
     predictions = compute_predictions(detector, data_loader, progress_every=0)
-    return evaluate_coco_dataset(data_loader.dataset, predictions), predictions
+    return evaluate_dataset(data_loader.dataset, predictions), predictions

@@ -37,7 +37,7 @@ from .fcos.head import FCOSHead
 from .fcos.loss import fcos_losses
 from .fcos.module import mix_cls_maps
 from .fcos.postprocess import PostProcessConfig, fcos_postprocess
-from .layers import calibration, init_parameters
+from .layers import NO_SCALE, calibration, init_parameters, read_scales
 
 LAYERS = ("P3", "P4", "P5", "P6", "P7")
 
@@ -237,13 +237,27 @@ class SCANDetector(nn.Module):
         return losses
 
     @torch.no_grad()
+    def reset_int8_calibration(self):
+        """Return every int8 |x|max buffer to ``NO_SCALE``, so the convs
+        quantize dynamically again: the un-calibrated state that
+        ``scan_tpu``'s ``calibrate_int8`` starts each call from (its base
+        parameters). ``calibrate_int8`` folds into the running maxima, so a
+        caller that calibrates for another dataset resets first."""
+        for m in self.modules():
+            for name in getattr(m, "scale_names", ()):
+                getattr(m, name).fill_(NO_SCALE)
+        read_scales(self)
+        return self
+
+    @torch.no_grad()
     def calibrate_int8(self, image_batches):
         """Store static int8 activation scales (``detector.py:361-414``):
         run the inference path over each batch of ``image_batches`` (uint8
         NHWC, numpy or tensors) with every int8 conv quantizing dynamically
-        and recording its input's running |x|max. In ``light`` mode the cls
-        tower does not run and keeps no scale, as in ``scan_tpu``. No-op
-        without ``TPU.INT8_INFERENCE``."""
+        and recording its input's running |x|max, folded into the maxima
+        the buffers already hold (``reset_int8_calibration`` clears them).
+        In ``light`` mode the cls tower does not run and keeps no scale, as
+        in ``scan_tpu``. No-op without ``TPU.INT8_INFERENCE``."""
         if not self.int8_inference:
             return self
         device = next(self.parameters()).device

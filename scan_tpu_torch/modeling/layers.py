@@ -35,6 +35,12 @@ from ..ops.quant import (QuantizedActivation, f32, int8_conv_q, prepare_weight,
 NO_SCALE = -1.0  # an |x|max buffer that holds no value (an |x|max is >= 0)
 
 
+def is_scale_key(key: str) -> bool:
+    """A state-dict key of an |x|max buffer: a conv's ``<name>.amax`` or
+    one of the stem's ``*_act``."""
+    return key.endswith(".amax") or key.endswith("_act")
+
+
 def add_scales(module: nn.Module, names):
     """Give ``module`` the |x|max buffers ``names``, holding no value yet."""
     module.scale_names = tuple(names)

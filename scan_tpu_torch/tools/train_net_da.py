@@ -1,0 +1,93 @@
+"""Adversarial domain-adaptation training, the main SCAN entry point
+(counterpart of ``tools/train_net_da.py``; reference ``tools/train_net_da.py``).
+
+    python -m scan_tpu_torch.tools.train_net_da \\
+        --config-file configs/scan/scan_vgg16_cityscapace_to_foggy.yaml \\
+        [--test-only] [KEY VALUE ...]
+
+Builds the detector on ``MODEL.DEVICE`` (the card unless ``cpu`` is given)
+with its per-level discriminators, one SGD over the trainable parameters
+with WarmupMultiStep, the source, target and validation loaders, and runs
+the DA loop with in-training validation, periodic and best-AP50
+checkpoints in ``OUTPUT_DIR``. A run finds its ``last_checkpoint`` there
+and resumes: the parameters, prototype, momentum and schedule are
+restored and both training streams skip to the restored iteration. An
+``http`` ``MODEL.WEIGHT`` (the ImageNet VGG of the configs) is ignored, as
+``scan_tpu`` ignores it; the port fetches nothing. ``--distributed`` and
+``--use-tensorboard`` are not ported and raise.
+"""
+
+import argparse
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="SCAN DA training (PyTorch)")
+    parser.add_argument("--config-file", required=True)
+    parser.add_argument("--test-only", action="store_true")
+    parser.add_argument("--use-tensorboard", action="store_true")
+    parser.add_argument("--distributed", action="store_true")
+    parser.add_argument("opts", nargs=argparse.REMAINDER, default=None)
+    args = parser.parse_args(argv)
+    if args.distributed or args.use_tensorboard:
+        raise NotImplementedError(
+            "--distributed and --use-tensorboard are not ported to "
+            "scan_tpu_torch yet")
+
+    from ..config import get_default_cfg
+    from ..data.build import (make_data_loader_source,
+                              make_data_loader_target, make_data_loader_test)
+    from ..engine.inference import inference
+    from ..engine.train_step import make_da_train_step
+    from ..engine.trainer import do_train_da
+    from ..modeling.detector import build_detector
+    from ..solver.build import make_lr_scheduler, make_optimizer
+    from ..utils.checkpoint import Checkpointer
+    from ..utils.collect_env import collect_env_info
+    from ..utils.logger import setup_logger
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file(args.config_file)
+    if args.opts:
+        cfg.merge_from_list(args.opts)
+    cfg.freeze()
+    if cfg.TPU.DEBUG_NANS:
+        raise NotImplementedError("TPU.DEBUG_NANS is not ported; the loop "
+                                  "checks every step's loss_total instead")
+
+    logger = setup_logger("scan_tpu_torch", cfg.OUTPUT_DIR)
+    logger.info("environment:\n%s", collect_env_info())
+    logger.info("config:\n%s", args.config_file)
+
+    detector = build_detector(cfg, device=cfg.MODEL.DEVICE, seed=1234)
+    loader_src = make_data_loader_source(cfg)
+    optimizer = make_optimizer(cfg, detector)
+    scheduler = make_lr_scheduler(cfg, optimizer)
+
+    checkpointer = Checkpointer(cfg.OUTPUT_DIR, detector, optimizer,
+                                scheduler)
+    weight = cfg.MODEL.WEIGHT
+    start_iter = checkpointer.load(
+        "" if weight.startswith("http") else weight)
+
+    # resume mid-schedule: the loaders skip to the restored iteration so
+    # the stream matches what an uninterrupted run would have seen
+    # (reference make_data_loader(start_iter), data/build.py:107-127)
+    loader_src.start_iter = start_iter
+    loader_val = make_data_loader_test(cfg)
+
+    if args.test_only:
+        results, _ = inference(detector, loader_val)
+        logger.info("test results: %s", {k: v for k, v in results.items()
+                                          if not isinstance(v, dict)})
+        return results
+
+    loader_tgt = make_data_loader_target(cfg, start_iter=start_iter)
+    train_step = make_da_train_step(detector, optimizer, scheduler)
+    _, best = do_train_da(
+        cfg, detector, train_step, detector.proto_state(), loader_src,
+        loader_tgt, loader_val, checkpointer, start_iter=start_iter)
+    return best
+
+
+if __name__ == "__main__":
+    main()

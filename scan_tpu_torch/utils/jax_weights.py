@@ -36,7 +36,7 @@ holds no value afterwards, and its conv quantizes dynamically, as
 import numpy as np
 import torch
 
-from ..modeling.layers import NO_SCALE, read_scales
+from ..modeling.layers import NO_SCALE, is_scale_key, read_scales
 
 _WRAPPERS = ("params", "act_scales", "Conv_0", "GroupNorm_0")
 # the port's stem scales <- the naive stem's (scan_tpu's name for each)
@@ -45,10 +45,6 @@ _STEM_ALIASES = {
     "backbone.body.conv1_act": "backbone.body.conv1.amax",
     "backbone.body.stem_out_act": "backbone.body.conv2.amax",
 }
-
-
-def _is_scale(key: str) -> bool:
-    return key.endswith(".amax") or key.endswith("_act")
 
 
 def _flatten(tree, path=()):
@@ -101,7 +97,7 @@ def load_jax_params(detector, params: dict, proto_state=None):
     own = {k: v for k, v in detector.state_dict().items()
            if k not in ("prototype", "proto_counter")}
     sd = _alias_stem_scales(convert_params(params), own)
-    missing = sorted(k for k in set(own) - set(sd) if not _is_scale(k))
+    missing = sorted(k for k in set(own) - set(sd) if not is_scale_key(k))
     extra = sorted(set(sd) - set(own))
     if missing or extra:
         raise KeyError(f"parameter mismatch: missing {missing}, unexpected {extra}")

@@ -14,7 +14,8 @@ setup(
     packages=find_packages(include=["scan_tpu", "scan_tpu.*",
                                     "scan_tpu_torch", "scan_tpu_torch.*"]),
     package_data={"scan_tpu.native": ["*.cpp"],
-                  "scan_tpu_torch": ["csrc/*.cu"]},
+                  "scan_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                     "native/*.cpp"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy",
                       "pyyaml", "pillow"],

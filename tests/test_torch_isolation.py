@@ -52,7 +52,13 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
                  "modeling.condgraph.sampling", "modeling.discriminator.grl",
                  "modeling.discriminator.discriminators", "solver.build",
                  "engine.train_step", "engine.trainer",
-                 "evaluation.coco_eval", "utils.metric_logger"):
+                 "evaluation.coco_eval", "utils.metric_logger",
+                 "config.paths_catalog", "native", "data", "data.build",
+                 "data.transforms", "data.datasets.coco",
+                 "data.datasets.voc_xml", "data.datasets.concat",
+                 "data.datasets.list_dataset", "evaluation.voc_eval",
+                 "utils.checkpoint", "utils.logger", "utils.collect_env",
+                 "tools.test_net", "tools.train_net_da"):
         assert "scan_tpu_torch." + name in res["modules"], name
     assert res["bad"] == []
     if not res["cuda"]:

@@ -264,7 +264,8 @@ class DetectionLoader:
         )
 
     def __iter__(self):
-        """Background-threaded prefetching iterator."""
+        """Background-threaded prefetching iterator. An error raised while a
+        loader thread builds a batch is raised here, in that batch's turn."""
         work_q: "queue.Queue" = queue.Queue(maxsize=self.num_threads * 2)
         out: Dict[int, dict] = {}
         out_lock = threading.Condition()
@@ -284,7 +285,10 @@ class DetectionLoader:
                     work_q.put(None)  # propagate sentinel
                     return
                 seq, gi = item
-                batch = self._make_batch(gi)
+                try:
+                    batch = self._make_batch(gi)
+                except Exception as e:  # raised again by the consumer
+                    batch = e
                 with out_lock:
                     out[seq] = batch
                     out_lock.notify_all()
@@ -305,9 +309,14 @@ class DetectionLoader:
                     while seq not in out:
                         alive = any(t.is_alive() for t in threads[1:])
                         if not alive and seq not in out:
-                            return
+                            if total is None:
+                                return
+                            raise RuntimeError(
+                                f"the loader stopped at batch {seq} of {total}")
                         out_lock.wait(timeout=0.5)
                     batch = out.pop(seq)
+                if isinstance(batch, Exception):
+                    raise batch
                 yield batch
                 seq += 1
         finally:

@@ -23,8 +23,6 @@ paths of resize and decode. Exposes:
   * preprocess_image: fused resize + BGR255 normalize + pad (loader hot path)
   * resize_image_u8:  PIL-exact resize into a padded uint8 buffer
   * decode_image:     PNG/JPEG bytes -> RGB uint8, the GIL released
-  * nms_cpu:          greedy '+1'-convention NMS (host-side utility)
-  * iou_matrix_xywh:  crowd-aware IoU matrix (COCO evaluator inner loop)
 """
 
 import ctypes
@@ -134,16 +132,6 @@ def _bind(lib):
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int,
     ]
-    lib.nms_cpu.restype = ctypes.c_int
-    lib.nms_cpu.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.iou_matrix_xywh.restype = None
-    lib.iou_matrix_xywh.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p,
-    ]
     lib.decode_image.restype = ctypes.c_int
     lib.decode_image.argtypes = [
         ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
@@ -163,7 +151,7 @@ def get_lib():
         raise RuntimeError("the native library is off (SCAN_TPU_NO_NATIVE=1)")
     with _lock:
         if _lib is None:
-            path = build()
+            path = build(SRC)
             _lib = _bind(ctypes.CDLL(str(path)))
             _lib.path = path
             logger.info("native library loaded: %s (codecs: %s)", path,
@@ -219,41 +207,6 @@ def resize_image_u8(src: np.ndarray, out: np.ndarray, oh: int, ow: int) -> None:
     if rc != 0:
         raise ValueError(f"resize_image_u8: ({ih}, {iw}) -> ({oh}, {ow}) "
                          f"does not fit ({dh}, {dw})")
-
-
-def nms_cpu(boxes: np.ndarray, scores: np.ndarray, iou_threshold: float,
-            labels=None) -> np.ndarray:
-    lib = get_lib()
-    n = boxes.shape[0]
-    if n == 0:
-        return np.zeros((0,), bool)
-    boxes = np.ascontiguousarray(boxes, np.float32)
-    scores = np.ascontiguousarray(scores, np.float32)
-    use_labels = labels is not None
-    labels = np.ascontiguousarray(
-        labels if use_labels else np.zeros(n), np.int32
-    )
-    keep = np.zeros(n, np.uint8)
-    lib.nms_cpu(
-        boxes.ctypes.data, scores.ctypes.data, labels.ctypes.data, n,
-        float(iou_threshold), int(use_labels), keep.ctypes.data,
-    )
-    return keep.astype(bool)
-
-
-def iou_matrix_xywh(det: np.ndarray, gt: np.ndarray,
-                    iscrowd: np.ndarray) -> np.ndarray:
-    """(nd, ng) IoU matrix, pycocotools' bbox semantics."""
-    lib = get_lib()
-    det = np.ascontiguousarray(det, np.float32)
-    gt = np.ascontiguousarray(gt, np.float32)
-    iscrowd = np.ascontiguousarray(iscrowd, np.uint8)
-    out = np.zeros((det.shape[0], gt.shape[0]), np.float64)
-    lib.iou_matrix_xywh(
-        det.ctypes.data, det.shape[0], gt.ctypes.data, gt.shape[0],
-        iscrowd.ctypes.data, out.ctypes.data,
-    )
-    return out
 
 
 def decode_image(data: bytes):

@@ -344,68 +344,4 @@ int resize_image_u8(const uint8_t* src, int ih, int iw, uint8_t* dst, int dh,
   return 0;
 }
 
-// Greedy hard NMS with the legacy '+1' IoU convention
-// (reference csrc/cuda/nms.cu:13-21) over score-sorted boxes. Host-side
-// utility for eval tooling / CPU fallbacks.
-int nms_cpu(const float* boxes, const float* scores, const int* labels,
-            int n, float iou_threshold, int use_labels, uint8_t* keep) {
-  std::vector<int> order(n);
-  for (int i = 0; i < n; ++i) order[i] = i;
-  std::sort(order.begin(), order.end(),
-            [&](int a, int b) { return scores[a] > scores[b]; });
-  std::vector<uint8_t> suppressed(n, 0);
-  int n_keep = 0;
-  for (int oi = 0; oi < n; ++oi) {
-    const int i = order[oi];
-    if (suppressed[i]) continue;
-    keep[i] = 1;
-    ++n_keep;
-    const float* bi = boxes + static_cast<size_t>(i) * 4;
-    const float area_i =
-        (bi[2] - bi[0] + 1.f) * (bi[3] - bi[1] + 1.f);
-    for (int oj = oi + 1; oj < n; ++oj) {
-      const int j = order[oj];
-      if (suppressed[j]) continue;
-      if (use_labels && labels[i] != labels[j]) continue;
-      const float* bj = boxes + static_cast<size_t>(j) * 4;
-      const float xx1 = std::max(bi[0], bj[0]);
-      const float yy1 = std::max(bi[1], bj[1]);
-      const float xx2 = std::min(bi[2], bj[2]);
-      const float yy2 = std::min(bi[3], bj[3]);
-      const float w = std::max(0.f, xx2 - xx1 + 1.f);
-      const float h = std::max(0.f, yy2 - yy1 + 1.f);
-      const float inter = w * h;
-      const float area_j =
-          (bj[2] - bj[0] + 1.f) * (bj[3] - bj[1] + 1.f);
-      if (inter / (area_i + area_j - inter) > iou_threshold)
-        suppressed[j] = 1;
-    }
-  }
-  return n_keep;
-}
-
-// Pairwise IoU matrix (xywh, crowd-aware union) — the COCO evaluator's
-// inner loop (pycocotools maskUtils.iou semantics).
-void iou_matrix_xywh(const float* det, int nd, const float* gt, int ng,
-                     const uint8_t* iscrowd, double* out) {
-  for (int d = 0; d < nd; ++d) {
-    const float* db = det + static_cast<size_t>(d) * 4;
-    const double da = static_cast<double>(db[2]) * db[3];
-    for (int g = 0; g < ng; ++g) {
-      const float* gb = gt + static_cast<size_t>(g) * 4;
-      const double ga = static_cast<double>(gb[2]) * gb[3];
-      const double ix =
-          std::max(0.0, std::min<double>(db[0] + db[2], gb[0] + gb[2]) -
-                            std::max<double>(db[0], gb[0]));
-      const double iy =
-          std::max(0.0, std::min<double>(db[1] + db[3], gb[1] + gb[3]) -
-                            std::max<double>(db[1], gb[1]));
-      const double inter = ix * iy;
-      const double uni = iscrowd[g] ? da : da + ga - inter;
-      out[static_cast<size_t>(d) * ng + g] =
-          uni > 1e-10 ? inter / uni : 0.0;
-    }
-  }
-}
-
 }  // extern "C"

@@ -8,19 +8,22 @@ import sys
 
 def setup_logger(name: str = "scan_tpu_torch", save_dir: str = "",
                  filename: str = "log.txt"):
+    """The logger ``name``, writing to stdout and to ``save_dir/filename``.
+    Each call replaces the handlers that an earlier call added, so every
+    run in a process logs into its own output directory."""
     logger = logging.getLogger(name)
     logger.setLevel(logging.DEBUG)
-    if logger.handlers:
-        return logger
-    fmt = logging.Formatter("%(asctime)s %(name)s %(levelname)s: %(message)s")
-    ch = logging.StreamHandler(stream=sys.stdout)
-    ch.setLevel(logging.DEBUG)
-    ch.setFormatter(fmt)
-    logger.addHandler(ch)
+    for h in [h for h in logger.handlers if getattr(h, "run_handler", False)]:
+        logger.removeHandler(h)
+        h.close()
+    handlers = [logging.StreamHandler(stream=sys.stdout)]
     if save_dir:
         os.makedirs(save_dir, exist_ok=True)
-        fh = logging.FileHandler(os.path.join(save_dir, filename))
-        fh.setLevel(logging.DEBUG)
-        fh.setFormatter(fmt)
-        logger.addHandler(fh)
+        handlers.append(logging.FileHandler(os.path.join(save_dir, filename)))
+    fmt = logging.Formatter("%(asctime)s %(name)s %(levelname)s: %(message)s")
+    for h in handlers:
+        h.run_handler = True
+        h.setLevel(logging.DEBUG)
+        h.setFormatter(fmt)
+        logger.addHandler(h)
     return logger

@@ -227,6 +227,34 @@ def test_eval_cache_second_pass_equals_first():
     assert first[-1]["indices"][-1] == -1  # 5 images in batches of 3
 
 
+@pytest.mark.parametrize("threads", [1, 3])
+@pytest.mark.parametrize("split", ["train", "eval"])
+def test_a_loader_thread_error_reaches_the_caller(split, threads,
+                                                  monkeypatch):
+    """An image that fails to load raises in the consumer at the batch
+    that holds it, after every batch before it; the loader does not end
+    early and quietly."""
+    cfg, _ = both_cfgs(threads=threads)
+    loader = (build.make_data_loader_source(cfg) if split == "train"
+              else build.make_data_loaders_test(cfg)[0])
+    stream = [idx for _, _, idx in loader._index_stream()]
+    bad = stream[1][0]
+    turn = min(k for k, idx in enumerate(stream) if bad in idx)
+    real = loader.dataset.load_image
+
+    def load_image(i):
+        if i == bad:
+            raise OSError(f"image {i} is unreadable")
+        return real(i)
+
+    monkeypatch.setattr(loader.dataset, "load_image", load_image)
+    got = []
+    with pytest.raises(OSError, match=f"image {bad} is unreadable"):
+        for batch in loader:
+            got.append(batch)
+    assert len(got) == turn
+
+
 def test_build_datasets_concatenates_for_training():
     cfg, jcfg = both_cfgs()
     names = ("cityscapes_train_cocostyle", "kitti_train_caronly")

@@ -4,8 +4,7 @@
   family, equal here) and against ``scan_tpu.native`` on the same bytes:
   equal byte for byte. Its uint8 resize and fused resize+normalise against
   PIL's bilinear resize and against ``scan_tpu.native``: equal byte for
-  byte, down- and upscaling. ``nms_cpu`` and ``iou_matrix_xywh`` against
-  ``scan_tpu.native``'s.
+  byte, down- and upscaling.
 * The build: the library's name changes with the source, the flags and the
   host; a source that does not compile raises with g++'s message; builds
   started at once all land on one library.
@@ -88,23 +87,6 @@ def test_preprocess_matches_scan_tpu(to_bgr255):
     with pytest.raises(ValueError):  # not contiguous
         native.resize_image_u8(src, np.zeros((96, 256, 3), np.uint8)[:, ::2],
                                70, 95)
-
-
-def test_nms_and_iou_match_scan_tpu():
-    rng = np.random.RandomState(3)
-    xy = rng.rand(300, 2) * 200
-    boxes = np.concatenate([xy, xy + rng.rand(300, 2) * 60 + 4], 1)
-    scores = rng.rand(300).astype(np.float32)
-    labels = rng.randint(1, 4, 300)
-    for lab in (None, labels):
-        np.testing.assert_array_equal(
-            native.nms_cpu(boxes, scores, 0.5, lab),
-            jax_native.nms_cpu(boxes, scores, 0.5, lab))
-    gt = np.concatenate([xy[:20], rng.rand(20, 2) * 50 + 2], 1)
-    crowd = (rng.rand(20) > 0.7).astype(np.uint8)
-    np.testing.assert_array_equal(
-        native.iou_matrix_xywh(boxes[:50], gt, crowd),
-        jax_native.iou_matrix_xywh(boxes[:50], gt, crowd))
 
 
 def test_build_key_changes_with_source_flags_and_host():

@@ -55,7 +55,8 @@ final ``{"ok": true, ...}`` line:
      conv1_2 (the ``*_probe`` entry points) to split their time, fp and
      int8 forward img/s at bfloat16,
      precision, batch 8 (int8 for each stem variant), and both forwards cut
-     at their layers;
+     at their layers; the fp forward of a detector built for training
+     (float32 masters cast at use) in turns with the bf16-parameter one;
  12. ``train_small_card_vs_cpu``: one DA step (``make_da_train_step``) of
      the full-width C2F model at 128x192, batch 2 + 2, float32, TF32 off,
      in each ``forward_target`` variant, on the card (K2 on the frozen stem)
@@ -84,14 +85,50 @@ final ``{"ok": true, ...}`` line:
      state (so the True variant's GST has nodes, checked); the step split
      into G source, D source, G target, D target, backward and optimizer;
      ``sample_target_nodes`` alone at full width;
- 16. ``disk_tree``: a Cityscapes-shaped C2F tree under a temporary directory
+ 16. ``weights_reference_pth``: reference-layout files at C2F's full width
+     under a temporary directory (a seeded caffe VGG16 ImageNet file, bare
+     and under ``state_dict`` with ``module.`` prefixes, and a full SCAN
+     checkpoint in the layout of
+     ``tests/test_checkpoint_roundtrip.py::_make_reference_ckpt``), the
+     ImageNet file also as ``vgg16_caffe-292e1171.pth`` in a cache directory
+     set as ``SCAN_TPU_CACHE_DIR`` for the rest of the run: the C2F config's
+     own ``MODEL.WEIGHT`` URL resolves to the cached file and
+     ``Checkpointer.load`` puts the file's tensors in the VGG body (and from
+     the wrapped file); the full checkpoint's every converted tensor equals
+     the file's at its port name, ``load_dis=False`` keeps the
+     discriminators and ``True`` loads them, the prototype is the file's
+     and its counter kept; the loaded detector's forward runs on the card;
+ 17. ``train_bf16_small_card_vs_cpu``: the bf16 DA step (float32 masters)
+     of the full-width C2F model at 128x192, batch 2 + 2, each
+     ``forward_target`` variant, on the card and on the CPU from the same
+     seeded weights, with a float32 CPU step beside: each metric and each
+     parameter group's update (relative L2) within the bound stated in
+     ``p_train_bf16_small`` (twice the CPU's own bf16-float32 distance);
+     target node masks counted;
+ 18. ``train_bf16_main_path_full_width``: phase 13 in bf16 (``train_main``):
+     K2 twice a step in bf16 and no other kernel, every parameter and
+     momentum buffer float32, the trained parameters moved and the frozen
+     ones not, one step of each variant under
+     ``torch.cuda.set_sync_debug_mode("error")``, every loss finite, peak
+     memory;
+ 19. ``train_bf16_timing``: phase 15 in bf16 (``train_time``) at 800x1344,
+     and whole steps at ``bench.py``'s 672x1344;
+ 20. ``train_ca_out_full_width``: ``configs/epm/da_ga_ca_cityscapes_VGG_16_FPN_4x.yaml``
+     (GA + CA, no condgraph) at full width with IMS_PER_BATCH cut from 16
+     to 4 + 4 (printed): a DA step in each CENTER_AWARE_TYPE and, with
+     USE_DIS_OUT, in each OUTMAP_OP, float32 and bf16, at 800x1344 (losses
+     finite, the families present, K2 twice a step) and at 128x192 on the
+     card and the CPU from the same weights (float32 as phase 12, bf16 as
+     phase 17); one float32 and one bf16 step timed;
+ 21. ``disk_tree``: a Cityscapes-shaped C2F tree under a temporary directory
      at the catalog's paths (``SCAN_TPU_DATA_DIR``): 8 source and 8 fogged
      target training frames and 32 fogged validation frames, phase 13's
      seeded scenes as 1024x2048 PNGs (written with ``zlib``, no Pillow)
      with COCO jsons; the test resize (666x1332) and the 672x1344 buckets
      asserted;
- 17. ``cli_train_da_from_disk``: ``tools/train_net_da.py``'s ``main`` on the
-     C2F config at full width, float32, batch 4 + 4, VAL_ITER 2,
+ 22. ``cli_train_da_from_disk``: ``tools/train_net_da.py``'s ``main`` on the
+     C2F config at full width, float32, batch 4 + 4, VAL_ITER 2, its
+     ``MODEL.WEIGHT`` URL loaded from phase 16's cache,
      CHECKPOINT_PERIOD 2: MAX_ITER 4, then the same command with MAX_ITER
      6, which must restore iteration 4 from ``last_checkpoint`` with
      parameters, momentum and scheduler state equal to the file's, then a
@@ -100,7 +137,7 @@ final ``{"ok": true, ...}`` line:
      target index streams equal the straight run's, its last two
      ``loss_total`` within 1e-3 relative of the straight run's; the
      iteration time and the data wait per step (host blocked on the loader);
- 18. ``cli_test_net_from_disk``: ``tools/test_net.py``'s ``main`` on the
+ 23. ``cli_test_net_from_disk``: ``tools/test_net.py``'s ``main`` on the
      resumed run's ``model_final``, bf16, precision, batch 8, over the 32
      frames, fp (K1 and K2 launch) and int8 with PALLAS_STEM_INT8 and one
      calibration batch (K5 and K1, not K2); its last stdout line is JSON
@@ -109,7 +146,14 @@ final ``{"ok": true, ...}`` line:
      Pillow did); the eval through the loader end to end in img/s, first
      pass (decode and resize) and second (the eval cache), the loader's
      wait per batch, the pageable host->card copy of a batch, the forward
-     alone at 672x1344, one PNG decode and one resize.
+     alone at 672x1344, one PNG decode and one resize;
+ 24. ``cli_train_net_from_disk``: ``tools/train_net.py``'s ``main`` (source
+     only) on the C2F config from phase 16's ImageNet file, bf16, batch 4,
+     MAX_ITER 4, CHECKPOINT_PERIOD 2: K2 once a step and no other kernel,
+     the VGG body at step 0 the file's, every loss finite; then
+     ``tools/remove_solver_states.py`` on its directory (the slim file holds
+     the model and the iteration only) and ``test_net`` on the slim file,
+     whose last stdout line is JSON with AP and AP50.
 
 Every number is printed with the card's name and power limit; everything is
 also written to ``chiprun_out/chip_smoke.json``. The line before the last is
@@ -843,6 +887,28 @@ def main(argv=None):
         fwd_ms = cuda_time(lambda: det.forward_inference(im, sizes), 5, 2)
         s.say("forward_bf16_precision_b8_ms", fwd_ms)
         s.say("forward_bf16_precision_b8_img_s", 8 * 1e3 / fwd_ms)
+        # the eval forward of a detector that trains: float32 masters cast at
+        # use, the same weights; in turns with the bf16-parameter detector
+        masters = build_detector(c2f("bfloat16", "precision"), device=dev,
+                                 seed=s.seed, train=True).eval()
+        turns = []
+        for tag, d in (("cast", det), ("masters", masters),
+                       ("masters", masters), ("cast", det)):
+            turns.append((tag, cuda_time(
+                lambda: d.forward_inference(im, sizes), 5, 2)))
+        with torch.no_grad():
+            a = det.forward_inference(im, sizes)
+            b = masters.forward_inference(im, sizes)
+        mean = {t: sum(ms for tt, ms in turns if tt == t) / 2
+                for t in ("cast", "masters")}
+        s.say("forward_bf16_cast_vs_masters_ms",
+              f"turns={turns} mean={mean} masters/cast="
+              f"{mean['masters'] / mean['cast']} spread of cast="
+              f"{abs(turns[0][1] - turns[3][1]) / mean['cast']}; valid "
+              f"equal={bool(torch.equal(a['valid'], b['valid']))} "
+              f"max|score diff|={float((a['scores'] - b['scores']).abs().max())}")
+        st["eval_masters"] = dict(turns=turns, mean=mean)
+        del masters
 
         time_parts("forward", det, im, sizes,
                    lambda x: det.backbone.body._stage1_fp(x))
@@ -1002,7 +1068,7 @@ def main(argv=None):
     from scan_tpu_torch.solver.build import make_lr_scheduler, make_optimizer
 
     def train_setup(cfg, device):
-        det = build_detector(cfg, device=device, seed=s.seed)
+        det = build_detector(cfg, device=device, seed=s.seed, train=True)
         opt = make_optimizer(cfg, det)
         sched = make_lr_scheduler(cfg, opt)
         return det, opt, sched, make_da_train_step(det, opt, sched)
@@ -1143,11 +1209,14 @@ def main(argv=None):
             (cg_mod.sample_source_nodes, cg_mod.sample_target_nodes,
              sampling.density_cluster_drop_first) = real
 
-    def p_train_main():
-        for key in ("dets", "int8_dets", "int8_det"):  # free the card
-            st.pop(key, None)
+    def train_main(dtype, key):
+        """The DA step's main path at full width in ``dtype``; the state
+        goes to ``st[key]`` (``train`` for float32, ``train_bf16``), and
+        every record is named after ``key``."""
+        for k in ("dets", "int8_dets", "int8_det", "train", "train_init"):
+            st.pop(k, None)  # free the card
         torch.cuda.empty_cache()
-        cfg = c2f("float32")
+        cfg = c2f(dtype)
         det, opt, sched, step = train_setup(cfg, dev)
         batches = [train_batches(4, H, W, s.seed + 10 + i, dev, n_boxes=100,
                                  k=16, scenes=True) for i in range(2)]
@@ -1191,7 +1260,7 @@ def main(argv=None):
                 proto, metrics = step(proto, *batches[i % 2],
                                       forward_target=ft, generator=gen)
                 host = {k: float(v) for k, v in metrics.items()}
-                s.say(f"train_step{i}_ft{int(ft)}",
+                s.say(f"{key}_step{i}_ft{int(ft)}",
                       " ".join(f"{k}={v:.6g}" for k, v in host.items()))
                 bad = {k: v for k, v in host.items() if not math.isfinite(v)}
                 assert not bad, bad
@@ -1202,13 +1271,13 @@ def main(argv=None):
             cg_mod.sample_target_nodes = real_target
             sampling.density_cluster_drop_first = real_dbscan
         nodes = [int(n) for n in target_nodes]
-        s.say("train_target_nodes_valid", nodes)
-        s.say("train_dbscan_candidates_kept",
+        s.say(f"{key}_target_nodes_valid", nodes)
+        s.say(f"{key}_dbscan_candidates_kept",
               [tuple(int(v) for v in c) for c in dbscan])
         assert len(nodes) == variants.count(True) and nodes[0] > 0, nodes
         torch.cuda.synchronize()
         launched = counts()
-        s.say("train_main_launches", launched)
+        s.say(f"{key}_main_launches", launched)
         assert launched["vgg_stem_fused"] == 2 * len(variants), launched
         assert not any(v for k, v in launched.items() if k != "vgg_stem_fused")
         per_step = launched["vgg_stem_fused"] // len(variants)
@@ -1221,12 +1290,19 @@ def main(argv=None):
                                       generator=gen)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
-            s.say(f"train_sync_free_ft{int(ft)}",
+            s.say(f"{key}_sync_free_ft{int(ft)}",
                   f"loss_total={float(metrics['loss_total'])}")
         moved = {k for k, p in det.named_parameters()
                  if not torch.equal(p.detach(), start[k])}
         trainable = set(start) - frozen
-        s.say("train_params", f"trainable={len(trainable)} moved="
+        # float32 masters and momentum whatever the compute dtype
+        low = [k for k, p in det.named_parameters() if p.dtype != torch.float32]
+        low += [i for i, v in enumerate(opt.state.values())
+                if v["momentum_buffer"].dtype != torch.float32]
+        assert not low and len(opt.state) == len(trainable), low[:5]
+        s.say(f"{key}_params", f"dtype={dtype} all float32, "
+              f"{len(opt.state)} float32 momentum buffers; "
+              f"trainable={len(trainable)} moved="
               f"{len(moved & trainable)} frozen={len(frozen)} "
               f"frozen_moved={len(moved & frozen)} counter={int(proto.counter)} "
               f"proto_max_change={float((proto.prototype - proto0).abs().max())}")
@@ -1235,10 +1311,17 @@ def main(argv=None):
                           for t in ("weight", "bias")}
         assert int(proto.counter) == cfg.MODEL.MIDDLE_HEAD.PROTO_ITER
         assert float((proto.prototype - proto0).abs().max()) > 0
-        s.say("train_peak_mem_gib", torch.cuda.max_memory_allocated() / 2 ** 30)
-        st["train"] = (cfg, det, opt, sched, step, batches)
-        st["train_init"] = init
-        st["train_k2_per_step"] = per_step
+        s.say(f"{key}_peak_mem_gib",
+              torch.cuda.max_memory_allocated() / 2 ** 30)
+        st[key] = (cfg, det, opt, sched, step, batches)
+        st[f"{key}_init"] = init
+        st[f"{key}_k2_per_step"] = per_step
+
+    def p_train_main():
+        train_main("float32", "train")
+
+    def p_train_bf16_main():
+        train_main("bfloat16", "train_bf16")
 
     def val_tree(root, n, seed):
         """A COCO validation set on disk: n seeded noise frames at H x W
@@ -1304,13 +1387,14 @@ def main(argv=None):
             if k["name"] == "vgg_stem_fused":
                 k["train_launches_per_step"] = st["train_k2_per_step"]
 
-    def p_train_time():
+    def train_time(key, other_sizes=()):
         """Every timed step starts from the seeded state of
-        ``p_train_main`` (restored outside the timed span, the momentum
+        ``train_main`` (restored outside the timed span, the momentum
         kept), where GST has target nodes: the True variant times the
-        branch it is named for."""
-        cfg, det, opt, sched, step, batches = st["train"]
-        init = st["train_init"]
+        branch it is named for. ``other_sizes`` (h, w) are timed too,
+        whole steps only, on scenes drawn at that size."""
+        cfg, det, opt, sched, step, batches = st[key]
+        init = st[f"{key}_init"]
         bs, bt = batches[0]
         targets = {k: bs[k] for k in ("boxes", "labels", "mask")}
         n_img = bs["images"].shape[0] + bt["images"].shape[0]
@@ -1339,6 +1423,22 @@ def main(argv=None):
                     outs.append(out)
             return sum(times) / len(times), outs
 
+        for hw in other_sizes:
+            bs2, bt2 = train_batches(4, *hw, s.seed + 10, dev, n_boxes=100,
+                                     k=16, scenes=True)
+            for ft in (False, True):
+                gen = torch.Generator(device=dev).manual_seed(3000 + ft)
+                ms, outs = timed(lambda: step(det.proto_state(), bs2, bt2,
+                                              forward_target=ft,
+                                              generator=gen)[1], 5)
+                tag = f"{key}_step_{hw[0]}x{hw[1]}_ft{int(ft)}"
+                if ft:
+                    transfer = [float(m["transfer_loss_gt"]) for m in outs]
+                    s.say(f"{tag}_transfer_loss_gt", transfer)
+                    assert min(transfer) > 0, transfer
+                s.say(f"{tag}_ms", ms)
+                s.say(f"{tag}_img_s", n_img * 1e3 / ms)
+            del bs2, bt2
         for ft in (False, True):
             gen = torch.Generator(device=dev).manual_seed(3000 + ft)
             ms, outs = timed(lambda: step(det.proto_state(), bs, bt,
@@ -1346,10 +1446,11 @@ def main(argv=None):
                                           generator=gen)[1], 5)
             if ft:
                 transfer = [float(m["transfer_loss_gt"]) for m in outs]
-                s.say("train_step_ft1_transfer_loss_gt", transfer)
+                s.say(f"{key}_step_ft1_transfer_loss_gt", transfer)
                 assert min(transfer) > 0, transfer
-            s.say(f"train_step_ft{int(ft)}_ms", ms)
-            s.say(f"train_step_ft{int(ft)}_img_s", n_img * 1e3 / ms)
+            s.say(f"{key}_step_ft{int(ft)}_ms", ms)
+            s.say(f"{key}_step_ft{int(ft)}_img_s", n_img * 1e3 / ms)
+            st.setdefault("step_ms", {})[f"{key}_ft{int(ft)}"] = ms
             parts = {}
             for rep in range(4):  # the step cut at its parts; rep 0 warms up
                 restore()
@@ -1384,7 +1485,7 @@ def main(argv=None):
                         parts.setdefault(name, []).append(
                             ev[j].elapsed_time(ev[j + 1]))
                 del ls, fs, acs, sms, lt, ftg, act, smt, total
-            s.say(f"train_split_ft{int(ft)}_ms",
+            s.say(f"{key}_split_ft{int(ft)}_ms",
                   {k: sum(v) / len(v) for k, v in parts.items()})
         captured = []
         real = cg_mod.sample_target_nodes
@@ -1404,12 +1505,15 @@ def main(argv=None):
         a, k = captured[0]
         with torch.no_grad():
             n_nodes = int(real(*a, **k)[2].sum())
-            s.say("sample_target_nodes_ms",
+            s.say(f"{key}_sample_target_nodes_ms",
                   cuda_time(lambda: real(*a, **k), 10, 2))
-        s.say("sample_target_nodes_valid", n_nodes)
+        s.say(f"{key}_sample_target_nodes_valid", n_nodes)
         assert n_nodes > 0
-        s.say("train_timing_peak_mem_gib",
+        s.say(f"{key}_timing_peak_mem_gib",
               torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    def p_train_time():
+        train_time("train")
 
     # ---- 16-18: the port's own entry points, from files on disk ---------
     from scan_tpu_torch import native
@@ -1524,7 +1628,11 @@ def main(argv=None):
             path = ckpt.get_checkpoint_file() if ckpt.has_checkpoint() else f
             entry = dict(iteration=it, path=path)
             if path and ckpt.optimizer is not None:
-                saved = torch.load(path, map_location="cpu", weights_only=True)
+                saved = torch.load(model_zoo.resolve_weight_uri(path),
+                                   map_location="cpu", weights_only=True)
+            if path and ckpt.optimizer is not None and "model" not in saved:
+                entry["reference_file"] = True  # the ImageNet VGG, iteration 0
+            elif path and ckpt.optimizer is not None:
                 own = ckpt.detector.state_dict()
                 entry["model_diff"] = [k for k, v in saved["model"].items()
                                        if not torch.equal(own[k].cpu(), v)]
@@ -1767,6 +1875,456 @@ def main(argv=None):
             if "cli_train" in st:
                 k["cli_train_launches"] = st["cli_train"]["launches"][k["name"]]
 
+    # ---- 16-20: reference weights, bf16 training, CA and OUT -----------
+    from scan_tpu_torch.tools import remove_solver_states, train_net
+    from scan_tpu_torch.utils import model_zoo, torch_weights
+    epm_ca = HERE / "configs" / "epm" / "da_ga_ca_cityscapes_VGG_16_FPN_4x.yaml"
+    vgg_idx = torch_weights.VGG16_TORCH_CONV_IDX
+    vgg_ch = (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512)
+
+    def imagenet_vgg(seed):
+        """A caffe VGG16 ImageNet file's layout, ``features.{idx}.*``, at
+        full width, seeded (the released file is not in the repo)."""
+        g = torch.Generator().manual_seed(seed)
+        sd, cin = {}, 3
+        for idx, ch in zip(vgg_idx, vgg_ch):
+            sd[f"features.{idx}.weight"] = torch.randn(
+                ch, cin, 3, 3, generator=g) * math.sqrt(2.0 / (9 * ch))
+            sd[f"features.{idx}.bias"] = torch.randn(ch, generator=g) * 0.1
+            cin = ch
+        return sd
+
+    def reference_ckpt(seed):
+        """A full reference SCAN checkpoint at C2F's full width, in the
+        layout of tests/test_checkpoint_roundtrip.py::_make_reference_ckpt:
+        VGG16 + FPN, 4-conv FCOS towers, the RNN condgraph with its
+        prototype, five CKA discriminators, and a GA entry nothing
+        converts."""
+        g = torch.Generator().manual_seed(seed)
+
+        def t(*shape, std=0.01):
+            return torch.randn(*shape, generator=g) * std
+
+        def tower(prefix, n, ch=256, gn=True):
+            out, step = {}, 3 if gn else 2
+            for i in range(n):
+                out[f"{prefix}.{i * step}.weight"] = t(ch, ch, 3, 3)
+                out[f"{prefix}.{i * step}.bias"] = t(ch)
+                if gn:
+                    out[f"{prefix}.{i * step + 1}.weight"] = 1 + t(ch)
+                    out[f"{prefix}.{i * step + 1}.bias"] = t(ch)
+            return out
+
+        bb = {f"body.{k}": v for k, v in imagenet_vgg(seed).items()}
+        for ref_i, cin in zip((3, 4, 5), (256, 512, 512)):
+            bb[f"fpn.fpn_inner{ref_i}.weight"] = t(256, cin, 1, 1, std=0.05)
+            bb[f"fpn.fpn_inner{ref_i}.bias"] = t(256)
+            bb[f"fpn.fpn_layer{ref_i}.weight"] = t(256, 256, 3, 3, std=0.02)
+            bb[f"fpn.fpn_layer{ref_i}.bias"] = t(256)
+        for p_ in ("p6", "p7"):
+            bb[f"fpn.top_blocks.{p_}.weight"] = t(256, 256, 3, 3, std=0.02)
+            bb[f"fpn.top_blocks.{p_}.bias"] = t(256)
+        fcos = {f"head.{k}": v for name in ("cls_tower", "bbox_tower")
+                for k, v in tower(name, 4).items()}
+        for name, o in (("cls_logits", 8), ("bbox_pred", 4), ("centerness", 1)):
+            fcos[f"head.{name}.weight"] = t(o, 256, 3, 3)
+            fcos[f"head.{name}.bias"] = t(o)
+        for l in range(5):
+            fcos[f"head.scales.{l}.scale"] = torch.ones(1)
+        mh = tower("head_in.middle_tower", 2)
+        mh["head_out.middle_tower.0.weight"] = t(256, 265, 3, 3)
+        mh["head_out.middle_tower.0.bias"] = t(256)
+        mh["prototype"] = t(9, 256, 3, std=1.0)
+        for name, o, i in (("proto_cls_hidden", 512, 256), ("proto_cls", 9, 512),
+                           ("cond_2", 256, 512)):
+            mh[f"{name}.weight"], mh[f"{name}.bias"] = t(o, i), t(o)
+        for lin in ("linear_q", "linear_k", "linear_v", "linear_final"):
+            mh[f"multihead_attn.{lin}.weight"] = t(256, 256, std=0.06)
+            mh[f"multihead_attn.{lin}.bias"] = t(256)
+        mh["multihead_attn.layer_norm.weight"] = 1 + t(256)
+        mh["multihead_attn.layer_norm.bias"] = t(256)
+        for layer, in_sz in ((0, 256), (1, 512)):
+            mh[f"cond_rnn.weight_ih_l{layer}"] = t(512, in_sz, std=0.05)
+            mh[f"cond_rnn.weight_hh_l{layer}"] = t(512, 512, std=0.05)
+            mh[f"cond_rnn.bias_ih_l{layer}"] = t(512)
+            mh[f"cond_rnn.bias_hh_l{layer}"] = t(512)
+        mh["cond_nx1.weight"] = t(256, 512, 3, 1, std=0.03)
+        mh["cond_nx1.bias"] = t(256)
+        ckpt = {"model_backbone": bb, "model_fcos": fcos, "middle_head": mh,
+                "model_dis_P3": tower("dis_tower", 4), "iteration": 20000}
+        for layer in ("P3", "P4", "P5", "P6", "P7"):
+            dis = tower("dis_tower", 4)
+            for c in range(8):
+                dis[f"classifier_cls_{c}.0.weight"] = t(128, 257, 3, 3)
+                dis[f"classifier_cls_{c}.0.bias"] = t(128)
+                dis[f"classifier_cls_{c}.2.weight"] = t(1, 128, 3, 3)
+                dis[f"classifier_cls_{c}.2.bias"] = t(1)
+            ckpt[f"model_dis_{layer}_CON"] = dis
+        return ckpt
+
+    def p_weights():
+        """16. Reference .pth files at C2F full width: the config's own
+        MODEL.WEIGHT URL resolves through SCAN_TPU_CACHE_DIR to the cached
+        ImageNet file and loads the VGG body; so does the file under
+        state_dict with module. prefixes; a full SCAN checkpoint's every
+        converted tensor lands at its port name, load_dis=False keeps the
+        discriminators, and the loaded detector's forward runs on the card."""
+        root = tmp_root / "weights"
+        cache = root / "cache"
+        cache.mkdir(parents=True)
+        sd = imagenet_vgg(s.seed + 60)
+        t0 = time.time()
+        torch.save(sd, root / "vgg16_caffe.pth")
+        shutil.copy(root / "vgg16_caffe.pth", cache / "vgg16_caffe-292e1171.pth")
+        torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+                   root / "vgg16_wrapped.pth")
+        full = reference_ckpt(s.seed + 61)
+        torch.save(full, root / "scan_c2f.pth")
+        written = time.time() - t0
+        os.environ["SCAN_TPU_CACHE_DIR"] = str(cache)  # for the CLIs below
+        st["imagenet_file"] = str(root / "vgg16_caffe.pth")
+        cfg = c2f()
+        url = cfg.MODEL.WEIGHT
+        resolved = model_zoo.resolve_weight_uri(url)
+        assert resolved == str(cache / "vgg16_caffe-292e1171.pth"), resolved
+
+        def body_equal(det):
+            body = det.backbone.body
+            return all(torch.equal(getattr(body, f"conv{i}").weight.cpu(),
+                                   sd[f"features.{idx}.weight"])
+                       and torch.equal(getattr(body, f"conv{i}").bias.cpu(),
+                                       sd[f"features.{idx}.bias"])
+                       for i, idx in enumerate(vgg_idx))
+
+        det = build_detector(cfg, device=dev, seed=s.seed)
+        for name in (url, str(root / "vgg16_wrapped.pth")):
+            with torch.no_grad():
+                det.backbone.body.conv5.weight.zero_()
+            t0 = time.time()
+            it = Checkpointer(str(root / "ck"), det).load(name)
+            s.say("weights_imagenet_load",
+                  f"{name} -> iteration {it} in {time.time() - t0:.2f} s")
+            assert it == 0 and body_equal(det), name
+        n_bytes = os.path.getsize(root / "scan_c2f.pth")
+        before = {k: v.clone() for k, v in det.state_dict().items()}
+        t0 = time.time()
+        assert Checkpointer(str(root / "ck"), det).load(
+            str(root / "scan_c2f.pth"), load_dis=False) == 0
+        load_s = time.time() - t0
+        converted, proto = torch_weights.convert_reference(full, det)
+        own = det.state_dict()
+        dis = [k for k in own if k.startswith("dis_")]
+        for k in dis:
+            assert torch.equal(own[k], before[k]), k
+        landed = [k for k in converted if not k.startswith("dis_")]
+        for k in landed:
+            assert torch.equal(own[k].cpu(), converted[k]), k
+        assert torch.equal(det.prototype.cpu(), proto)
+        assert int(det.proto_counter) == int(before["proto_counter"])
+        Checkpointer(str(root / "ck"), det).load(str(root / "scan_c2f.pth"))
+        own = det.state_dict()
+        for k in converted:
+            assert torch.equal(own[k].cpu(), converted[k]), k
+        im, sizes = images(2, H, W, s.seed + 62)
+        zero_counts()
+        out = det.forward_inference(im, sizes)
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(v.float()).all() for v in out.values())
+        s.say("weights_reference_pth",
+              f"files written in {written:.2f} s; full checkpoint "
+              f"{n_bytes / 2 ** 20:.1f} MiB loaded in {load_s:.2f} s, "
+              f"{len(converted)} tensors converted ({len(landed)} without "
+              f"the discriminators), {len(dis)} discriminator entries kept "
+              f"under load_dis=False; forward detections="
+              f"{int(out['valid'].sum())} launches={counts()}")
+        del det
+
+    def group_dist(d, ref, groups):
+        """Per parameter group, the L2 norm of the update d - ref over that
+        of ref (dicts of updates)."""
+        out = {}
+        for g, keys in groups.items():
+            num = sum(float(((d[k] - ref[k]) ** 2).sum()) for k in keys)
+            den = sum(float((ref[k] ** 2).sum()) for k in keys)
+            out[g] = (num / max(den, 1e-30)) ** 0.5
+        return out
+
+    def bf16_agree(tag, card, cpu16, cpu32):
+        """The bf16 bound: each metric of the card within max(2 x the
+        CPU's own bf16-float32 distance, 2**-7 of the value: two bf16 ulps,
+        K2's bf16 tolerance, 2**-16 absolute: the GST transfer loss, ~1e-3,
+        is 1 - cos of two adjacency matrices plus a KL, differences of
+        terms of order 1, so its bf16 error is absolute), each parameter
+        group's update within max(2 x that distance, 2e-3) in relative L2.
+        (m, updates, groups) per run."""
+        (mc, uc, groups), (m16, u16, _), (m32, u32, _) = card, cpu16, cpu32
+        assert set(mc) == set(m16) == set(m32)
+        worst = []
+        for k in m16:
+            d, own = abs(mc[k] - m16[k]), abs(m32[k] - m16[k])
+            worst.append((d / max(2 * own, 2 ** -7 * abs(m16[k]), 2 ** -16),
+                          k))
+        dc = group_dist(uc, u16, groups)
+        d32 = group_dist(u32, u16, groups)
+        for g in groups:
+            worst.append((dc[g] / max(2 * d32[g], 2e-3), g))
+        ratio, where = max(worst)
+        values = (f"card/cpu16/cpu32 = {mc[where]}/{m16[where]}/{m32[where]}"
+                  if where in m16 else "")
+        s.say(tag, f"worst ratio to the bound {ratio} at {where} {values}; "
+              f"update distance card-cpu {dc}, cpu bf16-f32 {d32}")
+        assert ratio <= 1.0, (tag, ratio, where)
+
+    def run_step(det, cfg, bs, bt, ft, reset=None):
+        """One DA step from ``reset`` (a state dict) with a fresh optimizer:
+        (host metrics, updates, the solver's groups)."""
+        if reset is not None:
+            det.load_state_dict(reset)
+        opt = make_optimizer(cfg, det)
+        step = make_da_train_step(det, opt, make_lr_scheduler(cfg, opt))
+        groups = {}
+        for g in opt.param_groups:
+            ids = {id(p) for p in g["params"]}
+            groups[g["label"]] = [k for k, p in det.named_parameters()
+                                  if id(p) in ids]
+        before = {k: p.detach().float().cpu().clone()
+                  for k, p in det.named_parameters()}
+        _, metrics = step(det.proto_state(), bs, bt, forward_target=ft)
+        host = {k: float(v) for k, v in metrics.items()}
+        upd = {k: p.detach().float().cpu() - before[k]
+               for k, p in det.named_parameters()}
+        bad = [k for k, v in host.items() if not math.isfinite(v)]
+        bad += [k for k, v in upd.items() if not torch.isfinite(v).all()]
+        assert not bad, f"non-finite on {det.pixel_mean.device}: {bad[:5]}"
+        return host, upd, groups
+
+    def p_train_bf16_small():
+        """17. The bf16 DA step, card against CPU, 128x192, batch 2 + 2,
+        each variant, every BASE_LR 0.1, from the same seeded weights. The
+        bound is measured, as in tests/test_torch_train_bf16.py: cuDNN and
+        oneDNN sum in other orders and round at other places (a bias fused
+        or added apart), and one bf16 ulp of difference spreads through the
+        layers, so the card is held to twice the CPU's own distance between
+        its bf16 and float32 steps (the CPU tests measure the port at
+        0.1-0.7x of that distance from scan_tpu's jitted bf16 step), with
+        floors (``bf16_agree``) of two bf16 ulps of a metric, 2**-16 absolute
+        and 2e-3 for an update. One sample of each distance is a noisy
+        yardstick: with independent roundings on the two devices a metric
+        exceeds twice the other's distance about a third of the time, which
+        the floors absorb (on an H100 the GST transfer loss, 8.6e-4, lay
+        6.8e-6 from the CPU's against 2.6e-6 between the CPU's bf16 and
+        float32). Target node masks may differ in bf16 and are counted, not
+        asserted."""
+        cfgs = {}
+        for dt in ("float32", "bfloat16"):
+            cfg = c2f(dt)
+            cfg.TPU.MAX_NODES, cfg.TPU.MAX_TARGET_POINTS = 64, 64
+            cfg.TPU.MAX_BOXES = 8
+            for k in ("BACKBONE", "MIDDLE_HEAD", "FCOS", "DIS"):
+                cfg.SOLVER[k].BASE_LR = 0.1
+            cfgs[dt] = cfg
+        cpu = torch.device("cpu")
+        for ft in (False, True):
+            runs, masks = {}, {}
+            for name, dt, device in (("card", "bfloat16", dev),
+                                     ("cpu16", "bfloat16", cpu),
+                                     ("cpu32", "float32", cpu)):
+                det = build_detector(cfgs[dt], device=device, seed=s.seed,
+                                     train=True)
+                bs, bt = train_batches(2, 128, 192, s.seed + 5, device)
+                rec = []
+                real = cg_mod.sample_target_nodes
+
+                def recording(*a, **k):
+                    out = real(*a, **k)
+                    rec.append(out[2].cpu())
+                    return out
+                cg_mod.sample_target_nodes = recording
+                try:
+                    runs[name] = run_step(det, cfgs[dt], bs, bt, ft)
+                finally:
+                    cg_mod.sample_target_nodes = real
+                masks[name] = rec
+                del det
+            same = [bool(torch.equal(a, b))
+                    for a, b in zip(masks["card"], masks["cpu16"])]
+            s.say(f"train_bf16_small_ft{int(ft)}_masks",
+                  f"target node masks equal card/cpu in bf16: {same}; "
+                  f"loss_total card/cpu16/cpu32="
+                  f"{[runs[n][0]['loss_total'] for n in runs]}")
+            bf16_agree(f"train_bf16_small_ft{int(ft)}", runs["card"],
+                       runs["cpu16"], runs["cpu32"])
+
+    def p_train_bf16_time():
+        # bench.py's train metric is the bf16 DA step at 672x1344
+        train_time("train_bf16", other_sizes=((672, 1344),))
+        for k in st.get("kernels") or []:
+            if k["name"] == "vgg_stem_fused":
+                k["train_bf16_launches_per_step"] = st["train_bf16_k2_per_step"]
+
+    def p_ca_out():
+        """20. configs/epm/da_ga_ca_cityscapes_VGG_16_FPN_4x.yaml (GA + CA,
+        no condgraph) at full width, IMS_PER_BATCH cut from 16 to 4 + 4: a
+        DA step in each CENTER_AWARE_TYPE, and with USE_DIS_OUT (no config
+        in configs/ turns it on) in each OUTMAP_OP, float32 and bf16, at
+        800x1344 (losses finite, every family present, K2 twice a step) and
+        at 128x192 on the card and the CPU from the same weights (float32:
+        metrics rtol 1e-4, updates within p_train_small's bound; bf16: the
+        bound of p_train_bf16_small)."""
+        for k in ("train_bf16", "train_bf16_init"):
+            st.pop(k, None)
+        torch.cuda.empty_cache()
+        base = get_default_cfg()
+        base.merge_from_file(str(epm_ca))
+        s.say("ca_out_config", f"{epm_ca.name}: SOLVER.IMS_PER_BATCH cut "
+              f"from {base.SOLVER.IMS_PER_BATCH} to 4 + 4; MODEL.WEIGHT "
+              f"{base.MODEL.WEIGHT} not loaded (seeded weights); "
+              f"condgraph {base.MODEL.MIDDLE_HEAD.CONDGRAPH_ON}")
+        big = train_batches(4, H, W, s.seed + 10, dev, n_boxes=100, k=16,
+                            scenes=True)
+        cpu = torch.device("cpu")
+        small = {d: train_batches(2, 128, 192, s.seed + 5, d)
+                 for d in (dev, cpu)}
+        variants = [(t, None) for t in ("ca_feature", "ca_loss", "focal")]
+        variants += [("ca_feature", op)
+                     for op in ("sigmoid", "maxpool", "attreg", "none")]
+        small_runs = {}
+        for dt in ("float32", "bfloat16"):
+            for op in (None, "sigmoid", "maxpool", "attreg", "none"):
+                cfg = base.clone()
+                cfg.TPU.COMPUTE_DTYPE = dt
+                cfg.SOLVER.IMS_PER_BATCH = 4
+                cfg.TPU.MAX_BOXES = 100
+                if op:
+                    cfg.MODEL.ADV.USE_DIS_OUT = True
+                    cfg.MODEL.ADV.OUTMAP_OP = op
+                det = build_detector(cfg, device=dev, seed=s.seed, train=True)
+                host = build_detector(cfg, device=cpu, seed=s.seed, train=True)
+                init = {k: v.clone() for k, v in det.state_dict().items()}
+                init_cpu = {k: v.clone() for k, v in host.state_dict().items()}
+                for ca_type, op_ in variants:
+                    if op_ != op:
+                        continue
+                    for d in (det, host):
+                        for name in d.dis_names:
+                            if name.endswith("_CA"):
+                                getattr(d, name).center_aware_type = ca_type
+                    tag = f"{dt}_{ca_type}_{op or 'no_out'}"
+                    zero_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    m, _, _ = run_step(det, cfg, *big, False, reset=init)
+                    torch.cuda.synchronize()
+                    wall = time.time() - t0
+                    c = counts()
+                    fams = sorted({k.split("_")[3] for k in m
+                                   if k.startswith("loss_adv")})
+                    s.say(f"ca_out_{tag}", f"800x1344 b4+4 step {wall:.3f} s "
+                          f"(with the host's copies), loss_total="
+                          f"{m['loss_total']} families={fams} launches={c}")
+                    assert all(math.isfinite(v) for v in m.values()), m
+                    assert fams == sorted(["GA", "CA"] + (["OUT"] if op else []))
+                    assert c["vgg_stem_fused"] == 2
+                    assert not any(v for k, v in c.items()
+                                   if k != "vgg_stem_fused")
+                    small_runs[(dt, tag.split("_", 1)[1], "card")] = run_step(
+                        det, cfg, *small[dev], False, reset=init)
+                    small_runs[(dt, tag.split("_", 1)[1], "cpu")] = run_step(
+                        host, cfg, *small[cpu], False, reset=init_cpu)
+                if op is None:  # one step timed, after the warm one above
+                    det.load_state_dict(init)
+                    opt = make_optimizer(cfg, det)
+                    step = make_da_train_step(det, opt)
+                    ms = cuda_time(lambda: step(None, *big), 2, 1)
+                    s.say(f"ca_out_{dt}_step_ms", f"{ms} ({8e3 / ms} img/s; "
+                          "CUDA events over 2 steps after a warm one)")
+                del det, host
+                torch.cuda.empty_cache()
+        for (dt, name, where), run in small_runs.items():
+            if where != "card" or dt != "float32":
+                continue
+            mc, uc, _ = run
+            mw, uw, _ = small_runs[(dt, name, "cpu")]
+            worst = max(abs(mc[k] - mw[k]) / max(abs(mw[k]), 1e-12) for k in mw)
+            ratio, at = delta_bound(uc, uw, 2e-3, 2e-3)
+            s.say(f"ca_out_small_float32_{name}", f"card vs cpu: metrics "
+                  f"worst_rel={worst} update bound ratio={ratio} at {at}")
+            assert set(mc) == set(mw) and worst <= 1e-4, worst
+            assert ratio <= 1.0, (ratio, at)
+            bf16_agree(f"ca_out_small_bfloat16_{name}",
+                       small_runs[("bfloat16", name, "card")],
+                       small_runs[("bfloat16", name, "cpu")],
+                       small_runs[("float32", name, "cpu")])
+
+    def p_cli_train_net():
+        """24. tools/train_net.py's main on the disk tree: source-only, bf16,
+        batch 4, MAX_ITER 4, CHECKPOINT_PERIOD 2, from the ImageNet file:
+        K2 once a step and nothing else, the VGG body at step 0 the file's;
+        then remove_solver_states on its directory and test_net on the slim
+        file (its last stdout line is JSON)."""
+        out = tmp_root / "c2f_train_net"
+        sd = torch.load(st["imagenet_file"], weights_only=True)
+        real = train_step_mod.make_source_only_train_step
+        steps, at_start = [], []
+
+        def make(det, opt, sched=None):
+            body = det.backbone.body
+            at_start.append(all(
+                torch.equal(getattr(body, f"conv{i}").weight.cpu(),
+                            sd[f"features.{idx}.weight"])
+                for i, idx in enumerate(vgg_idx)))
+            step = real(det, opt, sched)
+
+            def timed_step(*a, **k):
+                t0 = time.perf_counter()
+                proto, metrics = step(*a, **k)
+                steps.append((t0, metrics["loss_total"]))
+                return proto, metrics
+            return timed_step
+
+        train_step_mod.make_source_only_train_step = make
+        zero_counts()
+        t0 = time.time()
+        try:
+            train_net.main(["--config-file", str(C2F), "OUTPUT_DIR", str(out),
+                            "MODEL.WEIGHT", st["imagenet_file"],
+                            "TPU.COMPUTE_DTYPE", "bfloat16",
+                            "SOLVER.IMS_PER_BATCH", "4", "SOLVER.MAX_ITER", "4",
+                            "SOLVER.CHECKPOINT_PERIOD", "2"])
+        finally:
+            train_step_mod.make_source_only_train_step = real
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        c = counts()
+        losses = [float(l) for _, l in steps]
+        iter_ms = [1e3 * (b[0] - a[0]) for a, b in zip(steps, steps[1:])]
+        files = sorted(os.listdir(out))
+        s.say("cli_train_net", f"wall={wall:.2f} s launches={c} "
+              f"loss_total={losses} iteration_ms={iter_ms} files={files}")
+        assert at_start == [True] and len(steps) == 4
+        assert all(math.isfinite(v) for v in losses)
+        assert c["vgg_stem_fused"] == 4, c
+        assert not any(v for k, v in c.items() if k != "vgg_stem_fused"), c
+        assert {"model_0000002.pth", "model_0000004.pth",
+                "model_final.pth"} <= set(files)
+        slim = str(tmp_root / "slim" / "model_slim.pth")
+        remove_solver_states.main([str(out), slim])
+        kept = torch.load(slim, weights_only=True)
+        assert sorted(kept) == ["iteration", "model"], sorted(kept)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            test_net.main(["--config-file", str(C2F), "MODEL.WEIGHT", slim,
+                           "OUTPUT_DIR", str(tmp_root / "slim_test"),
+                           "TPU.COMPUTE_DTYPE", "bfloat16", "TEST.MODE",
+                           "precision", "TEST.IMS_PER_BATCH", "8"])
+        last = buf.getvalue().strip().splitlines()[-1]
+        s.say("cli_train_net_slim_test_net", f"slim keys={sorted(kept)} "
+              f"stdout_last={last}")
+        assert {"AP", "AP50"} <= set(json.loads(last))
+        st["cli_train_net"] = dict(iter_ms=iter_ms, launches=c)
+        for k in st.get("kernels") or []:
+            k["cli_train_net_launches"] = c[k["name"]]
+
     s.phase("build", p_build)
     s.phase("k1_nms_vs_plain", p_nms)
     s.phase("k2_stem_vs_plain", p_stem)
@@ -1794,6 +2352,14 @@ def main(argv=None):
     else:
         s.phase("train_loop_with_validation", p_train_loop)
         s.phase("train_timing", p_train_time)
+    s.phase("weights_reference_pth", p_weights)
+    s.phase("train_bf16_small_card_vs_cpu", p_train_bf16_small)
+    s.phase("train_bf16_main_path_full_width", p_train_bf16_main)
+    if "train_bf16_main_path_full_width" in s.failed:
+        s.failed.append("train_bf16_timing (skipped)")
+    else:
+        s.phase("train_bf16_timing", p_train_bf16_time)
+    s.phase("train_ca_out_full_width", p_ca_out)
     s.phase("disk_tree", p_disk_tree)
     if "disk_tree" in s.failed:
         s.failed.append("entry points from disk (skipped)")
@@ -1803,6 +2369,7 @@ def main(argv=None):
             s.failed.append("cli_test_net_from_disk (skipped)")
         else:
             s.phase("cli_test_net_from_disk", p_cli_test)
+        s.phase("cli_train_net_from_disk", p_cli_train_net)
 
     shutil.rmtree(tmp_root, ignore_errors=True)
     s.record["kernels"] = st.get("kernels")

@@ -15,6 +15,11 @@ reference trainer.py:350) selects which subgraphs exist, a Python bool per
 call. The step has no host round trip on the card: the prototype state and
 the metrics stay device tensors.
 
+In bfloat16 (``TPU.COMPUTE_DTYPE``) the step computes in bf16 over float32
+master weights, as ``scan_tpu``'s does: the detector is built with
+``build_detector(..., train=True)``, which keeps every parameter float32,
+so the gradients, the SGD update and its momentum are float32.
+
 Data parallelism (``scan_tpu``'s ``axis_name`` and ``_fused_pmean``) is not
 ported; this is the single-device step.
 """
@@ -28,10 +33,14 @@ from ..modeling.condgraph.prototype import ProtoState
 def _check_trainable(detector):
     if detector.int8_inference:
         raise NotImplementedError("an int8 detector does not train")
-    if detector.compute_dtype != torch.float32:
-        raise NotImplementedError(
-            "training runs in float32; bfloat16 training with float32 "
-            "master weights is not ported")
+    low = sorted(k for k, p in detector.named_parameters()
+                 if p.dtype != torch.float32)
+    if low:
+        raise ValueError(
+            f"{len(low)} parameters are not float32 (e.g. {low[0]}): a "
+            "detector built for evaluation holds bf16 parameters; build it "
+            "with build_detector(..., train=True) to train on float32 "
+            "masters")
 
 
 def _on(batch, device):

@@ -6,12 +6,16 @@ SCAN configs). Returns the post-pool feature of every stage, C1..C5.
 Convs are named ``conv0..conv12`` as in ``scan_tpu``, so weights carry over.
 
 fp path: stage 1 (conv1_1, ReLU, conv1_2, ReLU, pool) goes through
-``ops/cuda/stem_kernel.py::fused_stem``, kernel K2 on the card, with its
-weights packed once per weight version. Stages 1-2 (conv0..conv3) are built
-frozen, ``requires_grad`` False, as ``scan_tpu``'s solver freezes a VGG body
-(``solver/build.py:59-100``, FREEZE_CONV_BODY_AT 2). So a training forward
-runs K2 too: its output needs no gradient. K2 has no backward, so a
-training forward with stage 1 unfrozen raises (``fused_stem``).
+``ops/cuda/stem_kernel.py::fused_stem``, kernel K2 on the card, in the
+compute dtype (``compute_dtype``, set by the detector), with its weights
+packed once per weight version from the parameters as they are (the
+float32 masters of a bf16 training detector). The later stages' convs cast
+their input to the compute dtype themselves (``layers.Conv``). Stages 1-2
+(conv0..conv3) are built frozen, ``requires_grad`` False, as
+``scan_tpu``'s solver freezes a VGG body (``solver/build.py:59-100``,
+FREEZE_CONV_BODY_AT 2). So a training forward runs K2 too: its output
+needs no gradient. K2 has no backward, so a training forward with stage 1
+unfrozen raises (``fused_stem``).
 
 int8 path (``quant``): stages 2-5 are int8 convs, and stage 1 follows
 ``scan_tpu``'s ``_stage1_s2d`` (``vgg.py:236-528``) branch for branch, with
@@ -80,6 +84,7 @@ class VGG16(nn.Module):
         self.stage_blocks = tuple(stage_blocks)
         self.channels = tuple(max(8, c // width_div) for c in VGG16_STAGE_CHANNELS)
         self.quant = quant
+        self.compute_dtype = None  # fp path; set by the detector
         # stem switches, as scan_tpu's VGG16 fields (and their defaults)
         self.stem_s8_epilogue = stem_s8_epilogue
         self.stem_pair_conv = stem_pair_conv
@@ -115,8 +120,6 @@ class VGG16(nn.Module):
                 x = self._stage1_int8(x) if self.quant else self._stage1_fp(x)
                 idx += 2
             else:
-                if not self.quant:
-                    x = x.to(getattr(self, f"conv{idx}").weight.dtype)
                 for _ in range(blocks):
                     x = F.relu(getattr(self, f"conv{idx}")(x))
                     idx += 1
@@ -134,9 +137,10 @@ class VGG16(nn.Module):
         mode is on and the input or a stem weight requires grad."""
         c0, c1 = self.conv0, self.conv1
         weights = (c0.weight, c0.bias, c1.weight, c1.bias)
-        dt = c0.weight.dtype
+        dt = self.compute_dtype or c0.weight.dtype
         return fused_stem(x, *weights, out_dtype=dt,
-                          packed=self._packed(pack_stem, *weights))
+                          packed=self._packed(pack_stem, *weights,
+                                              out_dtype=dt))
 
     def _stage1_int8(self, x):
         """Stage 1 of the int8 path (``scan_tpu``'s ``_stage1_s2d`` with
@@ -195,11 +199,12 @@ class VGG16(nn.Module):
             return QuantizedActivation(phase_max_requant(z, s_out_q), s_out_q)
         return F.relu(max_pool_2x2(z))
 
-    def _packed(self, pack, *weights):
-        """``pack(*weights)`` for K2, K3 or K5, made once per weight version
-        (as ``Conv.quantized_weight`` quantizes once)."""
-        key = tuple((w.data_ptr(), w._version) for w in weights)
+    def _packed(self, pack, *weights, **kw):
+        """``pack(*weights, **kw)`` for K2, K3 or K5, made once per weight
+        version (as ``Conv.quantized_weight`` quantizes once)."""
+        key = tuple((w.data_ptr(), w._version) for w in weights) + tuple(
+            sorted(kw.items()))
         if self._packs.get(pack, (None,))[0] != key:
             with torch.no_grad():
-                self._packs[pack] = (key, pack(*weights))
+                self._packs[pack] = (key, pack(*weights, **kw))
         return self._packs[pack][1]

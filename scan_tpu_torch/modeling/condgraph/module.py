@@ -20,6 +20,12 @@ its input on the host), so a training pass reads nothing back. The
 softmax of ``cosine_detached``/``NO`` (``module.py:294, 298``) and the
 prototype update (``prototype.py``).
 
+In bfloat16 the towers compute in bf16 and the rest as JAX's promotion
+makes ``scan_tpu``'s: its Dense layers and MHA have no ``dtype`` and so run
+in float32 on bf16 nodes (``layers.Linear``), the dynamic conv is float32,
+and a product of a bf16 adjacency with float32 nodes runs in float32
+(``promoted_matmul``).
+
 Features are NHWC lists, one tensor per FPN level. With ``quant`` the
 ``head_in`` and ``head_out`` towers run the int8 branch, for inference only;
 the dynamic conv of the act maps stays fp (``module.py:144-161, 207-219``).
@@ -36,7 +42,8 @@ from torch import nn
 from ...ops.dynamic_conv import dynamic_conv
 from ...ops.focal_loss import bce_focal_loss, softmax_focal_loss
 from ...ops.locations import compute_locations
-from ..layers import ConvTower, Linear, MultiHeadSelfAttention, safe_l2_norm
+from ..layers import (ConvTower, Linear, MultiHeadSelfAttention,
+                      promoted_matmul, safe_l2_norm)
 from .prototype import ProtoState, source_prototype_view, update_prototype
 from .sampling import sample_source_nodes, sample_target_nodes
 
@@ -286,7 +293,8 @@ class CondGraph(nn.Module):
 
     def _gcn_local(self, nodes, adj):
         c = self.cfg
-        y = self.gcn_layer2(adj @ F.relu(self.gcn_layer1(adj @ nodes)))
+        h = F.relu(self.gcn_layer1(promoted_matmul(adj, nodes)))
+        y = self.gcn_layer2(promoted_matmul(adj, h))
         act = c.gcn_out_activation
         if act == "relu":
             y = F.relu(y)

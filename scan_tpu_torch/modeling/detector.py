@@ -6,18 +6,25 @@ submodules (``backbone``, ``middle_head``, ``fcos``, the names of
 ``scan_tpu``'s parameter dict) and the prototype state as buffers.
 
 Ported: construction with the per-level discriminators of a DA config
-(``detector.py:113-175``, the GA and CKA families), the seeded init,
-``_prep_images``, the training forward ``forward_train`` and
-``discriminator_losses`` (``detector.py:262-358``), and ``forward_inference``
-for the FCOS head with condgraph in all three TEST.MODEs, in fp32/bf16 or,
-with ``TPU.INT8_INFERENCE``, as w8a8 int8 (``detector.py:82-98, 361-464``)
-with ``calibrate_int8`` for static activation scales. ``scan_tpu`` keeps
-int8 variants of the backbone and heads beside the fp ones over one
-parameter tree; here an int8 detector's backbone, middle head and head are
-the int8 variants themselves, over the same float32 parameters, and it
-does not train. Discriminator modules are attributes named as
-``scan_tpu``'s top-level keys (``dis_P3_CON``, ...). The center-aware and
-output-space discriminators and ATSS are not ported and raise.
+(``detector.py:113-175``: GA, center-aware CA, output-space OUT and CKA),
+the seeded init, ``_prep_images``, the training forward ``forward_train``
+and ``discriminator_losses`` (``detector.py:262-358``), and
+``forward_inference`` for the FCOS head with condgraph in all three
+TEST.MODEs, in fp32/bf16 or, with ``TPU.INT8_INFERENCE``, as w8a8 int8
+(``detector.py:82-98, 361-464``) with ``calibrate_int8`` for static
+activation scales. ``scan_tpu`` keeps int8 variants of the backbone and
+heads beside the fp ones over one parameter tree; here an int8 detector's
+backbone, middle head and head are the int8 variants themselves, over the
+same float32 parameters, and it does not train. Discriminator modules are
+attributes named as ``scan_tpu``'s top-level keys (``dis_P3``,
+``dis_P3_CA``, ``dis_P3_OUT``, ``dis_P3_CON``, ...). ATSS is not ported and
+raises.
+
+In bfloat16 (``TPU.COMPUTE_DTYPE``) the convolutions and GroupNorms compute
+in bf16, as ``scan_tpu``'s flax ``dtype=`` makes them (``layers.py``). A
+detector built for training keeps every parameter in float32, the masters
+that SGD updates; a detector built for evaluation only holds its conv and
+GroupNorm parameters in bf16 (``set_compute_dtype``).
 """
 
 import dataclasses
@@ -29,15 +36,19 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.locations import compute_locations
 from .backbone.build import build_backbone
+from .backbone.vgg import VGG16
 from .condgraph.module import CondGraph, CondGraphConfig
 from .condgraph.prototype import ProtoState, init_proto_state
 from .discriminator.discriminators import (FCOSDiscriminator,
-                                           FCOSDiscriminatorCon)
+                                           FCOSDiscriminatorCA,
+                                           FCOSDiscriminatorCon,
+                                           FCOSDiscriminatorOut)
 from .fcos.head import FCOSHead
 from .fcos.loss import fcos_losses
 from .fcos.module import mix_cls_maps
 from .fcos.postprocess import PostProcessConfig, fcos_postprocess
-from .layers import NO_SCALE, calibration, init_parameters, read_scales
+from .layers import (NO_SCALE, Conv, GroupNorm32, calibration,
+                     init_parameters, read_scales)
 
 LAYERS = ("P3", "P4", "P5", "P6", "P7")
 
@@ -102,20 +113,38 @@ class SCANDetector(nn.Module):
         self.lambdas = {"GA": adv.GA_DIS_LAMBDA, "CA": adv.CA_DIS_LAMBDA,
                         "OUT": adv.OUT_DIS_LAMBDA, "CON": adv.CON_DIS_LAMBDA}
         self.dis_names = []
+        # the target pass runs the FCOS head for the CA and OUT families
+        # (detector.py:173-175)
+        self.need_score_maps = cfg.MODEL.DA_ON and (
+            adv.USE_DIS_CENTER_AWARE or adv.USE_DIS_OUT)
         if not cfg.MODEL.DA_ON:
             return
         for layer in LAYERS:
             grl_w = adv[f"GRL_WEIGHT_{layer}"]
-            if adv[f"USE_DIS_{layer}"] and (adv.USE_DIS_CENTER_AWARE
-                                            or adv.USE_DIS_OUT):
-                raise NotImplementedError(
-                    "the center-aware and output-space discriminators are "
-                    "not ported to scan_tpu_torch yet")
-            if adv.USE_DIS_GLOBAL and adv[f"USE_DIS_{layer}"]:
+            ca_grl_w = adv[f"CA_GRL_WEIGHT_{layer}"]
+            ca_convs = adv[f"CA_DIS_{layer}_NUM_CONVS"]
+            use = adv[f"USE_DIS_{layer}"]
+            if adv.USE_DIS_GLOBAL and use:
                 self._add_dis(f"dis_{layer}", FCOSDiscriminator(
                     num_convs=adv[f"DIS_{layer}_NUM_CONVS"], grl_lambda=grl_w,
                     grl_applied_domain=adv.GRL_APPLIED_DOMAIN,
                     patch_stride=adv.PATCH_STRIDE))
+            if adv.USE_DIS_CENTER_AWARE and use:
+                self._add_dis(f"dis_{layer}_CA", FCOSDiscriminatorCA(
+                    num_convs=ca_convs, grl_lambda=ca_grl_w,
+                    center_aware_weight=adv.CENTER_AWARE_WEIGHT,
+                    center_aware_type=adv.CENTER_AWARE_TYPE,
+                    grl_applied_domain=adv.GRL_APPLIED_DOMAIN))
+            if adv.USE_DIS_OUT and use:
+                self._add_dis(f"dis_{layer}_OUT", FCOSDiscriminatorOut(
+                    num_convs=ca_convs, grl_lambda=ca_grl_w,
+                    out_weight=adv.OUT_WEIGHT, out_loss=adv.OUT_LOSS,
+                    outmap_op=adv.OUTMAP_OP, use_reg=adv.OUTPUT_REG_DA,
+                    use_cls=adv.OUTPUT_CLS_DA,
+                    use_ctr=adv.OUTPUT_CENTERNESS_DA,
+                    num_classes=self.num_classes,
+                    base_dis_tower=adv.BASE_DIS_TOWER,
+                    grl_applied_domain=adv.GRL_APPLIED_DOMAIN))
             if adv.USE_DIS_CON and adv[f"USE_DIS_{layer}_CON"]:
                 self._add_dis(f"dis_{layer}_CON", FCOSDiscriminatorCon(
                     num_convs=adv[f"CON_NUM_SHARED_CONV_{layer}"],
@@ -149,20 +178,30 @@ class SCANDetector(nn.Module):
         self.prototype.copy_(state.prototype)
         self.proto_counter.copy_(state.counter)
 
-    def proto_state(self) -> ProtoState:
+    def proto_state(self):
+        """The prototype state, or None without the condgraph (the EPM
+        configs), as ``scan_tpu`` carries it."""
+        if not self.condgraph_on:
+            return None
         return ProtoState(self.prototype, self.proto_counter)
 
-    def set_compute_dtype(self):
-        """Convolutions and GroupNorms run in TPU.COMPUTE_DTYPE, as flax's
-        ``dtype=`` does; dense layers, Scales and prototypes stay float32.
-        The int8 modules keep their float32 parameters (they quantize the
-        float32 masters) and take the compute dtype for their outputs."""
+    def set_compute_dtype(self, cast_params: bool = True):
+        """Convolutions, GroupNorms and the VGG stem run in
+        TPU.COMPUTE_DTYPE, as flax's ``dtype=`` does; dense layers, Scales
+        and prototypes stay float32. With ``cast_params`` the conv and
+        GroupNorm parameters are cast to the compute dtype (a detector for
+        evaluation only); without, they stay float32 masters and are cast
+        at use (a detector that trains). The int8 modules keep their
+        float32 parameters (they quantize the float32 masters) and take the
+        compute dtype for their outputs."""
         for m in self.modules():
             if getattr(m, "quant", False):
                 m.dtype = self.compute_dtype
-            elif isinstance(m, (nn.Conv2d, nn.GroupNorm)):
-                m.to(self.compute_dtype)
-                if m.weight.dim() == 4:
+            elif isinstance(m, (Conv, GroupNorm32, VGG16)):
+                m.compute_dtype = self.compute_dtype
+                if cast_params and not isinstance(m, VGG16):
+                    m.to(self.compute_dtype)
+                if isinstance(m, Conv):
                     m.to(memory_format=torch.channels_last)
         return self
 
@@ -201,10 +240,11 @@ class SCANDetector(nn.Module):
                 targets if mode == "source" else None, generator=generator)
             losses.update(mh_losses)
         score_maps = None
-        if mode == "source":
+        if mode == "source" or self.need_score_maps:
             logits, reg, ctr = self.fcos(feats, True)
             score_maps = {"box_cls": logits, "box_regression": reg,
                           "centerness": ctr}
+        if mode == "source":
             shapes = [(f.shape[1], f.shape[2]) for f in feats]
             locations = compute_locations(shapes, self.strides,
                                           device=images.device)
@@ -218,8 +258,9 @@ class SCANDetector(nn.Module):
                              domain_label: float, domain: str):
         """Per-level adversarial losses (``detector.py:330-358``; reference
         trainer.py:314-376), ``lambda * loss`` under the names
-        ``loss_adv_{P}_{FAMILY}_{ds|dt}``. ``score_maps`` would feed the
-        center-aware and output-space families, which are not ported."""
+        ``loss_adv_{P}_{FAMILY}_{ds|dt}``. The center-aware family reads
+        the score maps detached; the output-space family reads them with
+        their gradient, as ``scan_tpu`` does (no stop_gradient there)."""
         losses = {}
         suffix = "ds" if domain == "source" else "dt"
         for name in self.dis_names:
@@ -230,6 +271,12 @@ class SCANDetector(nn.Module):
             mod = getattr(self, name)
             if family == "GA":
                 val = mod(feats[lvl], domain_label, domain)
+            elif family == "CA":
+                sm = {k: v[lvl].detach() for k, v in score_maps.items()}
+                val = mod(feats[lvl], domain_label, sm, domain)
+            elif family == "OUT":
+                sm = {k: v[lvl] for k, v in score_maps.items()}
+                val = mod(sm, domain_label, domain)
             else:  # CON
                 val = mod(feats[lvl], domain_label, act_maps[lvl], domain)
             losses[f"loss_adv_{layer}_{family}_{suffix}"] = (
@@ -295,9 +342,13 @@ class SCANDetector(nn.Module):
                                 image_sizes.to(images.device))
 
 
-def build_detector(cfg, device=None, seed: int = 0) -> SCANDetector:
+def build_detector(cfg, device=None, seed: int = 0,
+                   train: bool = False) -> SCANDetector:
     """Build the detector with seeded weights on ``device`` (the card unless
-    the caller asks for another; raises when there is no card)."""
+    the caller asks for another; raises when there is no card). ``train``
+    keeps every parameter float32 whatever the compute dtype (the masters a
+    bf16 training step updates); without it a bf16 detector holds its conv
+    and GroupNorm parameters in bf16 and only evaluates."""
     dev = resolve_device(device)
     det = SCANDetector(cfg).init_parameters(seed)
-    return det.to(dev).set_compute_dtype().eval()
+    return det.to(dev).set_compute_dtype(cast_params=not train).eval()

@@ -1,6 +1,7 @@
 """Gradient reversal (counterpart of ``scan_tpu/modeling/discriminator/grl.py``;
 reference ``discriminator/layer.py:6-33``): the identity forward, and
-``-lambda * g`` backward."""
+``-lambda * g`` backward. As in JAX, where lambda is a weakly typed scalar,
+lambda is first rounded to the gradient's dtype (bf16 on a bf16 tensor)."""
 
 import torch
 
@@ -13,7 +14,8 @@ class _GradientReversal(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return -ctx.lambd * g, None
+        lambd = float(torch.tensor(ctx.lambd, dtype=g.dtype))
+        return -lambd * g, None
 
 
 def gradient_reversal(x, lambd: float):

@@ -7,7 +7,9 @@ focal prior bias on ``cls_logits``, a learnable Scale per level on the box
 regression followed by exp (clamped at 25, ``head.py:73-77``), centerness
 off the regression tower when REG_CTR_ON (reference ``fcos.py:13-114``).
 With ``quant`` the two towers run the int8 branch; ``cls_logits``,
-``bbox_pred`` and ``centerness`` stay fp (``scan_tpu/modeling/fcos/head.py:29-50``).
+``bbox_pred`` and ``centerness`` stay fp (``scan_tpu/modeling/fcos/head.py:29-50``)
+and give float32 outputs from compute-dtype operands, as ``scan_tpu``'s
+jitted ``.astype(jnp.float32)`` does.
 """
 
 import math
@@ -29,10 +31,11 @@ class FCOSHead(nn.Module):
         self.bbox_tower = ConvTower(num_convs_reg, in_channels, in_channels,
                                     quant=quant)
         bias_value = -math.log((1 - prior_prob) / prior_prob)
+        # float32 outputs (see layers.Conv's float_output)
         self.cls_logits = Conv(in_channels, num_classes - 1, 3,
-                               bias_value=bias_value)
-        self.bbox_pred = Conv(in_channels, 4, 3)
-        self.centerness = Conv(in_channels, 1, 3)
+                               bias_value=bias_value, float_output=True)
+        self.bbox_pred = Conv(in_channels, 4, 3, float_output=True)
+        self.centerness = Conv(in_channels, 1, 3, float_output=True)
         for l in range(num_levels):
             self.add_module(f"scale{l}", Scale(1.0))
 

@@ -10,6 +10,18 @@ kaiming_uniform(a=1), VGG convs kaiming normal (fan_out, ReLU gain),
 GroupNorm(32, eps=1e-5) with unit weight. ``init_parameters`` applies these
 from a ``torch.Generator``, so a seed gives the same weights on any device.
 
+Compute dtype: ``Conv`` and ``GroupNorm32`` compute in ``compute_dtype``
+(set by the detector; None means the weight's dtype), as flax's ``dtype=``
+does in ``scan_tpu``. Their parameters may stay float32, the masters a bf16
+training step updates: the conv casts its input, weight and bias to the
+compute dtype at use, and GroupNorm takes its statistics and affine in
+float32 and casts its output (flax's ``GroupNorm(dtype=...)``), so the
+gradients reach the masters in float32. ``Linear`` has no compute dtype,
+as flax's ``Dense`` without ``dtype=`` has none: it computes in its
+weight's dtype (float32), which is where JAX's promotion puts a bf16
+input. ``promoted_matmul`` is a matmul with that promotion, which torch
+does not do on its own.
+
 ``Conv(quant=True)`` is the w8a8 int8 branch (``scan_tpu``'s ``Conv`` with
 ``quant``, ``layers.py:59-137``) over the same float32 parameters; see
 ``ops/quant.py``. Its static activation scale is a running |x|max buffer,
@@ -111,6 +123,23 @@ class Conv(nn.Conv2d):
     ``kaiming_uniform_a1`` or ``lecun_normal``); ``bias_value`` is the
     constant bias init.
 
+    The fp branch computes in ``compute_dtype`` (see the module
+    docstring), casting its input and, when they differ, its weight and
+    bias. ``float_output`` is for a prediction conv whose output the
+    caller takes in float32 (``scan_tpu``'s ``.astype(jnp.float32)``):
+    under ``jax.jit`` XLA keeps such a conv's float32 sum and bias and never
+    rounds them to bf16 (its excess-precision rule), so over float32
+    masters (a detector that trains) the result is float32
+    (``float_output_conv``). A detector for evaluation only, whose
+    parameters are bf16, rounds the result to bf16: the float32 result put
+    its FCOS head at 16.29 ms against 13.40 (batch 8, 800x1344, H100;
+    ``chip_smoke.py``'s ``timing``), more than the forward's run-to-run
+    spread. In float32 it changes nothing. On the CPU every other bf16 conv
+    runs as a float32 conv of its bf16 operands, rounded back: the same
+    arithmetic (exact products, float32 sums, one rounding) without
+    oneDNN's bf16 kernels, whose weight gradient has come back NaN for the
+    OUT discriminators' stride-2 convs on 1x1 maps.
+
     ``quant=True`` runs the int8 branch. Its parameters stay float32 (the
     weights it quantizes are the float32 masters, as in ``scan_tpu``), its
     output is in ``dtype`` (the compute dtype, set by the detector) or the
@@ -121,13 +150,15 @@ class Conv(nn.Conv2d):
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
                  bias=True, kernel_init="normal", std=0.01, bias_value=0.0,
-                 quant=False, act_scale=True):
+                 quant=False, act_scale=True, float_output=False):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
                          padding=kernel_size // 2, bias=bias)
         self.kernel_init = kernel_init
         self.std = std
         self.bias_value = bias_value
         self.quant = quant
+        self.float_output = float_output
+        self.compute_dtype = None  # set by the detector
         if quant:
             self.dtype = None
             self.calibrating = False
@@ -149,9 +180,26 @@ class Conv(nn.Conv2d):
 
     def forward(self, x):
         if not self.quant:
+            dt = self.compute_dtype or self.weight.dtype
             if isinstance(x, QuantizedActivation):
-                x = x.dequantize(self.weight.dtype)
-            return to_nhwc(super().forward(to_nchw(x)))
+                x = x.dequantize(dt)
+            w, b = self.weight, self.bias
+            masters = w.dtype != dt
+            if masters:  # float32 masters, cast at use
+                w = w.to(dt)
+                b = None if b is None else b.to(dt)
+            x = to_nchw(x.to(dt))
+            if dt == torch.float32:
+                return to_nhwc(self._conv_forward(x, w, b))
+            if self.float_output and masters:
+                return to_nhwc(float_output_conv(x, w, b, self.stride,
+                                                 self.padding))
+            if x.device.type == "cpu":
+                # float32 sums of the bf16 products, rounded back
+                y = self._conv_forward(x.float(), w.float(),
+                                       None if b is None else b.float())
+                return to_nhwc(y.to(dt))
+            return to_nhwc(self._conv_forward(x, w, b))
         p = self.kernel_size[0] // 2
         kw = dict(stride=self.stride, padding=((p, p), (p, p)))
         if isinstance(x, QuantizedActivation):
@@ -186,14 +234,69 @@ class Conv(nn.Conv2d):
             self.bias.fill_(self.bias_value)
 
 
+class _FloatOutputConv(torch.autograd.Function):
+    """conv2d of compute-dtype (bf16) operands with a float32 result: the
+    float32 sum of exact products plus the bias, never rounded to bf16.
+
+    The forward runs as a float32 conv with TF32 allowed: TF32 holds a bf16
+    value exactly, so the tensor cores' products are exact and their sums
+    float32, as a bf16 conv's are; only the result's rounding is skipped.
+    The backward takes the cotangent in the compute dtype (the transpose of
+    JAX's convert) and runs the conv's backward there, on the tensor cores;
+    on the CPU in float32, its results rounded back (see ``Conv``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, padding, groups):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, padding, groups, None if b is None else b.shape)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            return F.conv2d(x.float(), w.float(),
+                            None if b is None else b.float(), stride,
+                            padding, 1, groups)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        stride, padding, groups, bias_shape = ctx.conf
+        dt = x.dtype
+        g = gy.to(dt)
+        if x.device.type == "cpu":
+            g, x, w = g.float(), x.float(), w.float()
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                bias_shape is not None and ctx.needs_input_grad[2]]
+        grads = torch.ops.aten.convolution_backward(
+            g, x, w, list(bias_shape) if bias_shape is not None else None,
+            list(stride), list(padding), [1, 1], False, [0, 0], groups, mask)
+        gx, gw, gb = (None if t is None else t.to(dt) for t in grads)
+        return gx, gw, gb, None, None, None
+
+
+def float_output_conv(x, w, b, stride=(1, 1), padding=(1, 1), groups=1):
+    """NCHW ``conv2d`` with a float32 result from compute-dtype operands
+    (``_FloatOutputConv``)."""
+    return _FloatOutputConv.apply(x, w, b, tuple(stride), tuple(padding),
+                                  groups)
+
+
 class GroupNorm32(nn.GroupNorm):
-    """GroupNorm(32, eps=1e-5) over NHWC tensors."""
+    """GroupNorm(32, eps=1e-5) over NHWC tensors, in ``compute_dtype``."""
 
     def __init__(self, channels, num_groups=32):
         super().__init__(num_groups, channels, eps=1e-5)
+        self.compute_dtype = None  # set by the detector
 
     def forward(self, x):
-        return to_nhwc(super().forward(to_nchw(x)))
+        dt = self.compute_dtype or self.weight.dtype
+        if self.weight.dtype == dt:
+            return to_nhwc(super().forward(to_nchw(x.to(dt))))
+        # float32 masters: statistics and affine in float32, output in dt
+        y = F.group_norm(to_nchw(x).float(), self.num_groups, self.weight,
+                         self.bias, self.eps)
+        return to_nhwc(y.to(dt))
 
     @torch.no_grad()
     def init_parameters(self, gen: torch.Generator):
@@ -252,6 +355,9 @@ class Linear(nn.Linear):
         self.kernel_init = kernel_init
         self.std = std
 
+    def forward(self, x):
+        return super().forward(x.to(self.weight.dtype))
+
     @torch.no_grad()
     def init_parameters(self, gen: torch.Generator):
         w = self.weight
@@ -277,6 +383,13 @@ class LayerNorm(nn.LayerNorm):
     def init_parameters(self, gen: torch.Generator):
         self.weight.fill_(1.0)
         self.bias.zero_()
+
+
+def promoted_matmul(a, b):
+    """``a @ b`` in the dtype JAX's promotion gives (bf16 @ float32 runs in
+    float32); torch refuses mixed dtypes in a matmul."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
 
 
 def safe_l2_norm(x, dim=None, keepdim=False, eps: float = 1e-8):

@@ -5,16 +5,19 @@
         --config-file configs/scan/scan_vgg16_cityscapace_to_foggy.yaml \\
         [--test-only] [KEY VALUE ...]
 
-Builds the detector on ``MODEL.DEVICE`` (the card unless ``cpu`` is given)
-with its per-level discriminators, one SGD over the trainable parameters
-with WarmupMultiStep, the source, target and validation loaders, and runs
-the DA loop with in-training validation, periodic and best-AP50
-checkpoints in ``OUTPUT_DIR``. A run finds its ``last_checkpoint`` there
-and resumes: the parameters, prototype, momentum and schedule are
-restored and both training streams skip to the restored iteration. An
-``http`` ``MODEL.WEIGHT`` (the ImageNet VGG of the configs) is ignored, as
-``scan_tpu`` ignores it; the port fetches nothing. ``--distributed`` and
-``--use-tensorboard`` are not ported and raise.
+Builds the detector for training on ``MODEL.DEVICE`` (the card unless
+``cpu`` is given; float32 masters under a bf16 ``TPU.COMPUTE_DTYPE``) with
+its per-level discriminators, one SGD over the trainable parameters with
+WarmupMultiStep, the source, target and validation loaders, and runs the
+DA loop with in-training validation, periodic and best-AP50 checkpoints in
+``OUTPUT_DIR``. ``MODEL.WEIGHT`` is loaded first: an ImageNet VGG16 or a
+reference SCAN ``.pth`` (an ``http(s)`` URL from the local weight cache,
+``utils/model_zoo.py``; nothing is fetched, a file missing there raises)
+or a port checkpoint. A run that finds its ``last_checkpoint`` in
+``OUTPUT_DIR`` resumes from it instead: the parameters, prototype,
+momentum and schedule are restored and both training streams skip to the
+restored iteration. ``--distributed`` and ``--use-tensorboard`` are not
+ported and raise.
 """
 
 import argparse
@@ -58,16 +61,15 @@ def main(argv=None):
     logger.info("environment:\n%s", collect_env_info())
     logger.info("config:\n%s", args.config_file)
 
-    detector = build_detector(cfg, device=cfg.MODEL.DEVICE, seed=1234)
+    detector = build_detector(cfg, device=cfg.MODEL.DEVICE, seed=1234,
+                              train=True)
     loader_src = make_data_loader_source(cfg)
     optimizer = make_optimizer(cfg, detector)
     scheduler = make_lr_scheduler(cfg, optimizer)
 
     checkpointer = Checkpointer(cfg.OUTPUT_DIR, detector, optimizer,
                                 scheduler)
-    weight = cfg.MODEL.WEIGHT
-    start_iter = checkpointer.load(
-        "" if weight.startswith("http") else weight)
+    start_iter = checkpointer.load(cfg.MODEL.WEIGHT)
 
     # resume mid-schedule: the loaders skip to the restored iteration so
     # the stream matches what an uninterrupted run would have seen

@@ -18,8 +18,16 @@ It is written to a temporary file and renamed into place before the
 pointer moves, so a crash leaves the last complete checkpoint. Loading
 reads the scale buffers back into each int8 conv's ``calibrated`` set
 (``load_state_dict``'s hook), so a calibrated detector stays static.
-Reference ``.pth`` weights (``scan_tpu``'s ``torch_weights``) and weight
-URLs are not loaded: the port fetches nothing.
+
+``load`` goes by a file's content, not its extension (the port's own files
+end in ``.pth`` as the reference's do): a dict with ``model`` is the port's
+checkpoint; a file in the reference's layout (an ImageNet VGG16 or a full
+SCAN checkpoint, see ``torch_weights.py``) loads as ``scan_tpu``'s
+``_load_torch`` loads it (``checkpoint.py:155-177``): iteration 0, no
+optimizer or scheduler state, ``load_dis`` honoured, the prototype loaded
+and its counter kept, components the file lacks left as they are, and an
+unknown key or a shape mismatch raising. An ``http(s)`` URL resolves to
+its file in the local weight cache (``model_zoo.py``); nothing is fetched.
 """
 
 import logging
@@ -29,10 +37,10 @@ from typing import Optional
 import torch
 
 from ..modeling.layers import NO_SCALE, is_scale_key
+from . import torch_weights
+from .model_zoo import is_uri, resolve_weight_uri
 
 logger = logging.getLogger("scan_tpu_torch.checkpoint")
-
-_URL_PREFIXES = ("catalog://", "http://", "https://")
 
 
 class Checkpointer:
@@ -82,12 +90,19 @@ class Checkpointer:
         if not f:
             logger.info("no checkpoint found; keeping initialisation")
             return 0
-        if f.startswith(_URL_PREFIXES):
-            raise ValueError(f"{f} is a URL; scan_tpu_torch fetches no "
-                             "weights, give a local checkpoint file")
+        if is_uri(f):
+            resolved = resolve_weight_uri(f)
+            logger.info("%s resolved to %s", f, resolved)
+            f = resolved
         state = torch.load(f, map_location="cpu", weights_only=True)
+        if not isinstance(state, dict):
+            raise ValueError(f"{f} holds no state dict")
         if "model" not in state:
-            raise ValueError(f"checkpoint {f} has no 'model' entry")
+            if torch_weights.is_reference(state):
+                self._load_reference(f, state, load_dis)
+                return 0
+            raise ValueError(f"checkpoint {f} has no 'model' entry and is "
+                             "not in the reference's layout")
         self._load_model(f, state["model"], load_dis)
         if load_opt_sch:
             if self.optimizer is not None and "optimizer" in state:
@@ -97,6 +112,35 @@ class Checkpointer:
         iteration = int(state.get("iteration", 0))
         logger.info("restored %s at iteration %d", f, iteration)
         return iteration
+
+    @torch.no_grad()
+    def _load_reference(self, path, state: dict, load_dis: bool):
+        """Copy a reference-layout file's converted entries into the
+        detector, keeping each tensor's device and dtype."""
+        det = self.detector
+        converted, prototype = torch_weights.convert_reference(state, det)
+        own = det.state_dict()
+        loaded = set()
+        for k, v in converted.items():
+            if k.startswith("dis_") and not load_dis:
+                continue
+            if k not in own:
+                raise KeyError(f"unexpected checkpoint key {k} in {path}")
+            if tuple(own[k].shape) != tuple(v.shape):
+                raise ValueError(
+                    f"shape mismatch loading {path}: {k} is "
+                    f"{tuple(own[k].shape)} here, {tuple(v.shape)} in the file")
+            own[k].copy_(v)
+            loaded.add(k.split(".")[0])
+        if prototype is not None:
+            if tuple(det.prototype.shape) != tuple(prototype.shape):
+                raise ValueError(
+                    f"shape mismatch loading {path}: the prototype is "
+                    f"{tuple(det.prototype.shape)} here, "
+                    f"{tuple(prototype.shape)} in the file")
+            det.prototype.copy_(prototype)  # the counter is kept
+        logger.info("loaded %d reference entries of %s from %s (iteration "
+                    "0)", len(converted), sorted(loaded), path)
 
     @torch.no_grad()
     def _load_model(self, path, saved: dict, load_dis: bool):

@@ -25,7 +25,8 @@ those fill in the stem's names.
 
 Every top-level key is carried over, the training-only condgraph layers
 (``multihead_attn``, ``proto_cls_hidden``, ``proto_cls``, ``gcn_layer1/2``,
-``edge_project_u/v``) and the ``dis_*`` discriminators included: every
+``edge_project_u/v``) and the ``dis_*`` discriminators of every family
+(``dis_P3``, ``dis_P3_CA``, ``dis_P3_OUT``, ``dis_P3_CON``) included: every
 parameter of the port must be covered, and every key carried over must
 exist in the port, or ``load_jax_params`` raises. A scale buffer with no scale in the tree (an
 uncalibrated tree, or the cls tower after a ``light``-mode calibration)

@@ -1,0 +1,68 @@
+"""Weight URLs resolved to a local cache (counterpart of the cache half of
+``scan_tpu/utils/model_zoo.py``; reference ``fcos_core/utils/model_zoo.py``).
+
+An ``http(s)`` ``MODEL.WEIGHT`` (the ImageNet VGG16 of the configs) names a
+file in the cache directory: ``$SCAN_TPU_CACHE_DIR`` > ``$TORCH_MODEL_ZOO``
+> ``$TORCH_HOME/models`` > ``~/.torch/models``, under the URL's file name
+(Detectron's all-identical ``model_final.pkl`` names flattened from the
+URL's path). A URL whose file is in the cache resolves to that file. The
+port fetches nothing: a URL whose file is missing raises, and the error
+names the path where the file should be put. This is the part of
+``scan_tpu``'s behaviour that needs no network; its ``_download`` is not
+ported, and nothing here creates a directory.
+
+``catalog://`` names point at Detectron ``.pkl`` files through
+``ModelCatalog``, which the port's ``config/paths_catalog.py`` does not
+have: loading them needs ``c2_loading.py``, part of the long tail not yet
+ported, so they raise.
+"""
+
+import os
+from urllib.parse import urlparse
+
+
+def default_cache_dir() -> str:
+    for var in ("SCAN_TPU_CACHE_DIR", "TORCH_MODEL_ZOO"):
+        d = os.environ.get(var)
+        if d:
+            return d
+    torch_home = os.path.expanduser(os.environ.get("TORCH_HOME", "~/.torch"))
+    return os.path.join(torch_home, "models")
+
+
+def url_to_filename(url: str) -> str:
+    parts = urlparse(url)
+    if parts.fragment:
+        return parts.fragment
+    filename = os.path.basename(parts.path)
+    if filename == "model_final.pkl":
+        # Detectron's pre-trained files all share this name; the full path
+        # is the cache key (reference model_zoo.py:46-50)
+        filename = parts.path.replace("/", "_")
+    return filename
+
+
+def is_uri(f: str) -> bool:
+    return f.startswith(("catalog://", "http://", "https://"))
+
+
+def resolve_weight_uri(f: str, model_dir: str = None) -> str:
+    """A ``catalog://`` or ``http(s)://`` weight name -> its local file.
+    Other names pass unchanged. Raises for ``catalog://`` and for a URL
+    whose file is not in the cache."""
+    if f.startswith("catalog://"):
+        raise ValueError(
+            f"{f}: catalog:// weights are Detectron .pkl files, which need "
+            "the c2_loading converter; it is not ported to scan_tpu_torch "
+            "yet. Give a .pth file or an http(s) URL of one")
+    if not f.startswith(("http://", "https://")):
+        return f
+    model_dir = model_dir or default_cache_dir()
+    cached = os.path.join(model_dir, url_to_filename(f))
+    if not os.path.isfile(cached):
+        raise ValueError(
+            f"{f} is not in the weight cache and scan_tpu_torch fetches "
+            f"nothing: put the file at {cached} (the cache directory is "
+            "$SCAN_TPU_CACHE_DIR, else $TORCH_MODEL_ZOO, else "
+            "$TORCH_HOME/models, else ~/.torch/models)")
+    return cached

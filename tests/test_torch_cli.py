@@ -25,9 +25,18 @@
   scales are held to its own op-by-op ones within rtol 5e-2 (measured: up
   to 2.1%, the dim set's ``head_in.conv1``; the port is 1.3e-7 from the
   op-by-op value there), so that gap lies inside ``scan_tpu``.
-* ``train_net_da`` on the CPU: 2 iterations with ``VAL_ITER`` 2 and
-  ``CHECKPOINT_PERIOD`` 1 write ``model_final`` and the pointer; the same
-  command with ``MAX_ITER`` 3 restores iteration 2 and trains one more.
+* ``train_net_da`` on the CPU, from the config's ImageNet VGG16 URL
+  resolved through ``SCAN_TPU_CACHE_DIR`` (a seeded file at the test's
+  width): 2 iterations with ``VAL_ITER`` 2 and ``CHECKPOINT_PERIOD`` 1 write
+  ``model_final`` and the pointer; the same command with ``MAX_ITER`` 3
+  restores iteration 2 and trains one more.
+* ``train_net`` (source-only, ``MODEL.DA_ON`` False) from a checkpoint of
+  ``scan_tpu``'s parameters, without dropout: 2 iterations whose metrics
+  equal those of ``scan_tpu``'s ``make_source_only_train_step`` on the same
+  batches within rtol 1e-4; the same command with ``MAX_ITER`` 3 resumes at
+  2; ``remove_solver_states`` on the run's directory drops exactly
+  ``optimizer`` and ``scheduler``; ``test_net`` loads the slim file and
+  prints its JSON line.
 """
 
 import json
@@ -46,17 +55,23 @@ from scan_tpu.config import get_default_cfg as jax_default_cfg
 from scan_tpu.config.paths_catalog import DatasetCatalog as JaxCatalog
 from scan_tpu.data import build as jax_build
 from scan_tpu.engine.inference import inference as jax_inference
+from scan_tpu.engine.train_step import \
+    make_source_only_train_step as jax_source_step
 from scan_tpu.modeling.detector import build_detector as jax_build_detector
+from scan_tpu.solver.build import make_optimizer as jax_make_optimizer
 from scan_tpu_torch import native
 from scan_tpu_torch.config import get_default_cfg
 from scan_tpu_torch.config.paths_catalog import DatasetCatalog
 from scan_tpu_torch.engine import inference as inference_mod
+from scan_tpu_torch.engine import train_step as train_step_mod
 from scan_tpu_torch.modeling.detector import build_detector
-from scan_tpu_torch.tools import test_net, train_net_da
+from scan_tpu_torch.tools import (remove_solver_states, test_net, train_net,
+                                  train_net_da)
 from scan_tpu_torch.utils.checkpoint import Checkpointer
 from scan_tpu_torch.utils.jax_weights import convert_params, load_jax_params
 from scan_tpu_torch.utils.logger import setup_logger
 from tests.test_torch_data import coco_tree, make_trees
+from tests.test_torch_reference_weights import imagenet_vgg
 
 C2F = os.path.join(os.path.dirname(__file__), "..", "configs", "scan",
                    "scan_vgg16_cityscapace_to_foggy.yaml")
@@ -261,7 +276,13 @@ def test_int8_calibrates_each_dataset_from_scratch(setup, monkeypatch,
         0.5 * first["backbone.body.conv0_act"]
 
 
-def test_train_net_da_writes_and_resumes(setup, caplog):
+def test_train_net_da_writes_and_resumes(setup, caplog, monkeypatch,
+                                         tmp_path):
+    cache = tmp_path / "cache"
+    cache.mkdir()
+    vgg = imagenet_vgg(seed=21, width_div=8)
+    torch.save(vgg, cache / "vgg16_caffe-292e1171.pth")
+    monkeypatch.setenv("SCAN_TPU_CACHE_DIR", str(cache))
     out = str(setup["root"] / "train_out")
     common = ["--config-file", C2F, *argv(
         "MODEL.DEVICE", "cpu", "OUTPUT_DIR", out, "TPU.VGG_WIDTH_DIV", 8,
@@ -271,6 +292,7 @@ def test_train_net_da_writes_and_resumes(setup, caplog):
         "SOLVER.CHECKPOINT_PERIOD", 1)]
     caplog.set_level("INFO", logger="scan_tpu_torch")
     train_net_da.main(common + ["SOLVER.MAX_ITER", "2"])
+    assert "vgg16_caffe-292e1171.pth (iteration 0)" in caplog.text
     files = sorted(os.listdir(out))
     assert {"model_0000001.pth", "model_0000002.pth", "model_final.pth",
             "last_checkpoint"} <= set(files)
@@ -289,3 +311,69 @@ def test_train_net_da_writes_and_resumes(setup, caplog):
     assert state["iteration"] == 3 and state["scheduler"]["last_epoch"] == 3
     with pytest.raises(NotImplementedError, match="--distributed"):
         train_net_da.main(["--distributed", *common])
+
+
+def test_train_net_matches_scan_tpu_resumes_and_slims(setup, monkeypatch,
+                                                      caplog, capsys):
+    out = str(setup["root"] / "train_net_out")
+    steps = []
+    real = train_step_mod.make_source_only_train_step
+
+    def recording(*a, **k):
+        step = real(*a, **k)
+
+        def wrapped(proto, batch, generator=None):
+            assert generator is None  # no dropout: comparable to scan_tpu
+            steps.append({k: np.array(v) for k, v in batch.items()})
+            proto, metrics = step(proto, batch, generator)
+            steps[-1]["metrics"] = {k: float(v) for k, v in metrics.items()}
+            return proto, metrics
+        return wrapped
+
+    monkeypatch.setattr(train_step_mod, "make_source_only_train_step",
+                        recording)
+    train = ("TPU.MAX_BOXES", 4, "INPUT.MIN_SIZE_RANGE_TRAIN", (-1, -1),
+             "INPUT.MIN_SIZE_TRAIN", (96,), "INPUT.MAX_SIZE_TRAIN", 128,
+             "SOLVER.IMS_PER_BATCH", 2, "MODEL.MIDDLE_HEAD.ATT_DROPOUT", 0.0)
+    common = ["--config-file", C2F, *argv(
+        "MODEL.DEVICE", "cpu", "OUTPUT_DIR", out, "MODEL.WEIGHT",
+        setup["weight"], "SOLVER.CHECKPOINT_PERIOD", 1, *train)]
+    caplog.set_level("INFO", logger="scan_tpu_torch")
+    train_net.main(common + ["SOLVER.MAX_ITER", "2"])
+    assert len(steps) == 2
+    assert {"model_0000001.pth", "model_final.pth"} <= set(os.listdir(out))
+
+    jcfg = jax_cfg("MODEL.DA_ON", False, *train)
+    params = {k: v for k, v in setup["params"].items()
+              if not k.startswith("dis_")}
+    opt = jax_make_optimizer(jcfg, params)
+    state, proto = opt.init(params), setup["proto"]
+    jstep = jax_source_step(jax_build_detector(jcfg), opt)
+    for i, rec in enumerate(steps):
+        batch = {k: jnp.asarray(rec[k])
+                 for k in ("images", "sizes", "boxes", "labels", "mask")}
+        params, state, proto, want = jstep(params, state, proto, batch)
+        assert set(rec["metrics"]) == set(want)
+        for k, v in rec["metrics"].items():
+            assert v == pytest.approx(float(want[k]), rel=1e-4), (i, k)
+
+    caplog.clear()
+    train_net.main(common + ["SOLVER.MAX_ITER", "3"])
+    assert "model_final.pth at iteration 2" in caplog.text
+    assert len(steps) == 3
+    with pytest.raises(NotImplementedError, match="--distributed"):
+        train_net.main(["--distributed", *common])
+
+    slim = str(setup["root"] / "slim" / "model_slim.pth")
+    assert remove_solver_states.main([out, slim]) == slim
+    full = torch.load(os.path.join(out, "model_final.pth"), weights_only=True)
+    got = torch.load(slim, weights_only=True)
+    assert set(full) - set(got) == {"optimizer", "scheduler"}
+    assert set(got) == {"model", "iteration"} and got["iteration"] == 3
+    for k, v in full["model"].items():
+        assert torch.equal(got["model"][k], v), k
+    capsys.readouterr()
+    ret = test_net.main(["--config-file", C2F, *argv(
+        "MODEL.DEVICE", "cpu", "MODEL.WEIGHT", slim,
+        "OUTPUT_DIR", str(setup["root"] / "slim_test"))])
+    assert last_json(capsys) == ret and {"AP", "AP50"} <= set(ret)

@@ -58,7 +58,9 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
                  "data.datasets.voc_xml", "data.datasets.concat",
                  "data.datasets.list_dataset", "evaluation.voc_eval",
                  "utils.checkpoint", "utils.logger", "utils.collect_env",
-                 "tools.test_net", "tools.train_net_da"):
+                 "utils.model_zoo", "utils.torch_weights",
+                 "tools.test_net", "tools.train_net_da", "tools.train_net",
+                 "tools.remove_solver_states"):
         assert "scan_tpu_torch." + name in res["modules"], name
     assert res["bad"] == []
     if not res["cuda"]:

@@ -389,10 +389,13 @@ def test_stem_kernel_refuses_autograd(cuda_device):
 
 
 @pytest.mark.gpu
-def test_training_step_runs_k2_on_the_frozen_stem(cuda_device):
-    """One DA step of the full-width C2F model on a small input: the frozen
-    stem runs K2 in the source and the target forward, its weights do not
-    move, and a trained weight does."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_training_step_runs_k2_on_the_frozen_stem(cuda_device, dtype,
+                                                  monkeypatch):
+    """One DA step of the full-width C2F model on a small input, in float32
+    and in bf16 over float32 masters: the frozen stem runs K2 (in the
+    compute dtype) in the source and the target forward and never its
+    plain version, its weights do not move, and a trained weight does."""
     import os
 
     from scan_tpu_torch.config import get_default_cfg
@@ -404,7 +407,13 @@ def test_training_step_runs_k2_on_the_frozen_stem(cuda_device):
     cfg.merge_from_file(os.path.join(os.path.dirname(__file__), "..", "configs",
                                      "scan", "scan_vgg16_cityscapace_to_foggy.yaml"))
     cfg.TPU.MAX_BOXES = 4
-    det = build_detector(cfg, device=cuda_device)
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    det = build_detector(cfg, device=cuda_device, train=True)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain stem ran on the card")
+
+    monkeypatch.setattr(stem_kernel, "reference_stem", refuse)
     opt = make_optimizer(cfg, det)
     step = make_da_train_step(det, opt, make_lr_scheduler(cfg, opt))
     g = torch.Generator().manual_seed(0)
@@ -426,3 +435,4 @@ def test_training_step_runs_k2_on_the_frozen_stem(cuda_device):
     assert torch.isfinite(metrics["loss_total"]).item()
     assert torch.equal(body.conv1.weight, stem_w)
     assert not torch.equal(body.conv4.weight, trained)
+    assert all(p.dtype == torch.float32 for p in det.parameters())

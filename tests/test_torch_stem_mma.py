@@ -10,7 +10,8 @@ to that order:
   with the packed w1 gives conv1_2: exactly ``conv_s32`` for s8, and
   ``F.conv2d`` within float32 rounding (rtol 1e-5, atol 1e-5 of the largest
   value; the same bf16 products summed in another order) for bf16;
-- ``VGG16._stage1_fp`` packs once per weight version.
+- ``VGG16._stage1_fp`` packs once per weight version, and for its compute
+  dtype (bf16 over float32 masters packs the masters for bf16).
 The kernels themselves run only on the card (``tests/test_torch_kernels.py``).
 """
 
@@ -137,9 +138,9 @@ def test_k2_bf16_w0_pack_contracts_to_conv2d(b, h, w):
 def test_stage1_fp_packs_once_per_weight_version(monkeypatch):
     calls = []
 
-    def counting(*weights):
-        calls.append(1)
-        return stem_kernel.pack_weights(*weights)
+    def counting(*weights, **kw):
+        calls.append(kw.get("out_dtype"))
+        return stem_kernel.pack_weights(*weights, **kw)
 
     monkeypatch.setattr(vgg_mod, "pack_stem", counting)
     torch.manual_seed(0)
@@ -157,5 +158,10 @@ def test_stage1_fp_packs_once_per_weight_version(monkeypatch):
         net.conv0.bias.add_(0.5)
         net(x)
         assert len(calls) == 3
+        # a bf16 compute dtype packs the float32 masters for bf16, once
+        net.compute_dtype = torch.bfloat16
+        assert net(x)[0].dtype == torch.bfloat16
+        net(x)
+        assert calls == [torch.float32] * 3 + [torch.bfloat16]
     assert first.shape == second.shape == (1, 16, 16, 8)
     assert not torch.equal(first, second)

@@ -155,6 +155,44 @@ final ``{"ok": true, ...}`` line:
      the model and the iteration only) and ``test_net`` on the slim file,
      whose last stdout line is JSON with AP and AP50.
 
+The R-101 and ATSS configs (every ResNet body loaded, as its config loads
+it, from a seeded full-width Detectron R-101 pickle that ``Checkpointer``
+reads; the head's cls_logits bias set to -2 on the eval paths, so scores
+spread above INFERENCE_TH and NMS has work), after phase 20:
+
+ 25. ``resnet_small_card_vs_cpu``: ``configs/epm/da_ga_ca_cityscapes_R_101_FPN_4x.yaml``
+     at full width, 128x192, float32, TF32 off, on the card and the CPU
+     from the same weights: the backbone's features within 1e-4 of each
+     level's largest value, detections matched as in phase 5, one GA + CA
+     DA step as phase 12 (metrics rtol 1e-4, updates within 2e-3 + 2e-3);
+ 26. ``r101_main_path_full_width``: that config's eval forward at
+     800x1344, batch 4, float32 and bf16, counters zeroed before and read
+     after (K1 once a forward, no K2, no int8 kernel), NMS's candidate sets
+     against the plain NMS; the bf16 forward at batch 8 timed, with its
+     peak memory, and cut at body, backbone, head and postprocess;
+ 27. ``r101_train_full_width``: its GA + CA DA step, batch 4 + 4 at
+     800x1344, float32 and bf16 (float32 masters): every loss finite, the
+     frozen stem, stage 1 and every FrozenBatchNorm buffer unchanged, every
+     trainable parameter moved, no kernel launched; 2 steps timed and the
+     peak memory; in bf16 also the step with the body's convs rounding to
+     bf16 instead of ``float_output``, in turns;
+ 28. ``atss_small_card_vs_cpu``: phase 25 for
+     ``configs/epm/da_ga_sim10k_VGG_16_FPN_4x_atss.yaml`` with the
+     center-aware discriminators turned on as well;
+ 29-30. ``atss_main_path_full_width``: phase 26 for the ATSS config (K1 and
+     K2 once a forward), then phase 27 for it as written (GA) and with CA
+     (K2 twice a step, nothing else);
+ 31. ``cli_r101_from_pkl`` (after phase 24): ``train_net_da`` on the GA + CA
+     R-101 config from the disk tree (its datasets are the tree's C2F sets),
+     ``MODEL.WEIGHT`` the seeded pickle written into the tree, bf16, batch
+     4 + 4, MAX_ITER 2, VAL_ITER 2: K1 in validation and no K2,
+     ``model_final``'s stem and stage 1 the pickle's; ``catalog://`` of the
+     config family resolves to the pickle in the weight cache; then
+     ``test_net`` on the ATSS config from phase 16's ImageNet VGG16 over
+     the tree's 32 fogged frames (``DATASETS.TEST`` cut to them: the
+     config's car-only set is not in the tree), K1 and K2 4 times each, its
+     last stdout line JSON.
+
 Every number is printed with the card's name and power limit; everything is
 also written to ``chiprun_out/chip_smoke.json``. The line before the last is
 the per-kernel JSON; the last line is the device JSON.
@@ -169,6 +207,7 @@ import itertools
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import struct
@@ -2325,6 +2364,415 @@ def main(argv=None):
         for k in st.get("kernels") or []:
             k["cli_train_net_launches"] = c[k["name"]]
 
+    # ---- 25-31: ResNet-101 and ATSS --------------------------------------
+    from scan_tpu_torch.modeling.atss.atss import atss_postprocess
+    from scan_tpu_torch.modeling.layers import Conv, FrozenBatchNorm
+    from scan_tpu_torch.utils.c2_loading import convert_c2_resnet
+    r101_ca = HERE / "configs" / "epm" / "da_ga_ca_cityscapes_R_101_FPN_4x.yaml"
+    atss_cfg = HERE / "configs" / "epm" / "da_ga_sim10k_VGG_16_FPN_4x_atss.yaml"
+
+    def epm(path, dtype="float32", opts=()):
+        """An EPM config at full width, IMS_PER_BATCH cut from 16 to 4 + 4
+        (one card's batch), 100 GT slots."""
+        cfg = get_default_cfg()
+        cfg.merge_from_file(str(path))
+        cfg.TPU.COMPUTE_DTYPE = dtype
+        cfg.SOLVER.IMS_PER_BATCH = 4
+        cfg.TPU.MAX_BOXES = 100
+        cfg.merge_from_list(list(opts))
+        return cfg
+
+    def free_card():
+        for k in ("dets", "int8_dets", "int8_det", "train", "train_init",
+                  "train_bf16", "train_bf16_init", "r101", "atss"):
+            st.pop(k, None)
+        torch.cuda.empty_cache()
+
+    def detectron_r101(body, seed):
+        """A seeded Detectron blob dict for ``body`` (a port ResNet), in
+        the names of scan_tpu/utils/c2_loading.py:3-12: convs at He scale
+        (conv1 over the caffe input's ~60 std), folded BNs near identity,
+        the residual branches' last BN at 0.2, as a trained body damps
+        them, so 101 layers stay finite; with a classifier and momentum
+        blobs, under ``blobs``."""
+        rng = np.random.RandomState(seed)
+        sd = body.state_dict()
+        blobs = {}
+
+        def put(name, key, gain=1.0):
+            shape = tuple(sd[key].shape)
+            if name.endswith("_w"):
+                v = rng.randn(*shape) * math.sqrt(2.0 / np.prod(shape[1:]))
+                v = v / 60.0 if name == "conv1_w" else v
+            elif name.endswith("_s"):
+                v = gain * (1 + 0.1 * rng.randn(*shape))
+            else:
+                v = 0.1 * rng.randn(*shape)
+            blobs[name] = v.astype(np.float32)
+
+        put("conv1_w", "stem_conv1.weight")
+        put("res_conv1_bn_s", "stem_bn1.weight")
+        put("res_conv1_bn_b", "stem_bn1.bias")
+        for si, n in enumerate(body.stage_blocks, 1):
+            for b in range(n):
+                p, blk = f"res{si + 1}_{b}_branch", f"layer{si}_block{b}"
+                for br, i in zip("abc", (1, 2, 3)):
+                    put(f"{p}2{br}_w", f"{blk}.conv{i}.weight")
+                    put(f"{p}2{br}_bn_s", f"{blk}.bn{i}.weight",
+                        0.2 if br == "c" else 1.0)
+                    put(f"{p}2{br}_bn_b", f"{blk}.bn{i}.bias")
+                if b == 0:
+                    put(f"{p}1_w", f"{blk}.downsample_conv.weight")
+                    put(f"{p}1_bn_s", f"{blk}.downsample_bn.weight")
+                    put(f"{p}1_bn_b", f"{blk}.downsample_bn.bias")
+        momentum = {k + "_momentum": np.zeros_like(v)
+                    for k, v in list(blobs.items())[:4]}
+        blobs["fc1000_w"] = rng.randn(1000, 2048).astype(np.float32) * 0.01
+        return {"blobs": dict(blobs, **momentum), "model_iter": 0}
+
+    def r101_pickle():
+        """The seeded full-width R-101 pickle (written once), also in the
+        weight cache as catalog://ImageNetPretrained/MSRA/R-101's file."""
+        if "r101_pkl" not in st:
+            body = build_detector(epm(r101_ca), device="cpu").backbone.body
+            data = detectron_r101(body, s.seed + 80)
+            path = tmp_root / "R-101.pkl"
+            t0 = time.time()
+            with open(path, "wb") as f:
+                pickle.dump(data, f, protocol=2)
+            cache = Path(os.environ.get("SCAN_TPU_CACHE_DIR",
+                                        tmp_root / "cache"))
+            cache.mkdir(parents=True, exist_ok=True)
+            os.environ["SCAN_TPU_CACHE_DIR"] = str(cache)
+            shutil.copy(path, cache / "R-101.pkl")
+            st["r101_pkl"] = str(path)
+            st["r101_blobs"] = data["blobs"]
+            s.say("r101_pickle", f"{path.stat().st_size / 2 ** 20:.1f} MiB "
+                  f"Detectron pickle written in {time.time() - t0:.2f} s")
+        return st["r101_pkl"]
+
+    def seeded(det, cls_bias=None):
+        """``det`` from the R-101 pickle when its body is a ResNet (the
+        configs' ImageNet body, loaded by ``Checkpointer``); with
+        ``cls_bias`` the head's cls_logits bias set to it, so scores spread
+        above INFERENCE_TH and NMS has work."""
+        if hasattr(det.backbone.body, "stem_conv1"):
+            t0 = time.time()
+            it = Checkpointer(str(tmp_root / "ck_unused"), det).load(
+                r101_pickle())
+            assert it == 0
+            st["r101_pkl_load_s"] = time.time() - t0
+        if cls_bias is not None:
+            with torch.no_grad():
+                det.fcos.cls_logits.bias.fill_(cls_bias)
+        return det
+
+    def frozen_state(det):
+        """The names of the frozen parameters and the FrozenBN buffers."""
+        names = {k for k, p in det.named_parameters() if not p.requires_grad}
+        for mname, m in det.named_modules():
+            if isinstance(m, FrozenBatchNorm):
+                names |= {f"{mname}.{b}" for b, _ in m.named_buffers()}
+        return names
+
+    def small_card_vs_cpu(key, path, opts=()):
+        """Card against CPU at 128x192, float32, TF32 off, from the same
+        seeded weights (cls bias 0: spread scores): the backbone's
+        features within 1e-4 of each level's largest value, the detections
+        matched as sets (p_small's bounds, boxes 0.03 px, scores 1.1e-4),
+        and one DA step (every BASE_LR 0.1): metrics within rtol 1e-4,
+        every update within p_train_small's bound (2e-3 + 2e-3)."""
+        cfg = epm(path, opts=opts)
+        for k in ("BACKBONE", "MIDDLE_HEAD", "FCOS", "DIS"):
+            cfg.SOLVER[k].BASE_LR = 0.1
+        h, w = 128, 192
+        cpu = torch.device("cpu")
+        dets = {d: seeded(build_detector(cfg, device=d, seed=s.seed,
+                                         train=True), cls_bias=0.0)
+                for d in (dev, cpu)}
+        im, sizes = images(2, h, w, s.seed + 1)
+        with torch.no_grad():
+            fg, fc = (dets[d].backbone(dets[d]._prep_images(x))
+                      for d, x in ((dev, im), (cpu, im.cpu())))
+            worst = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                        for a, b in zip(fg, fc))
+            got = {k: v.cpu() for k, v in
+                   dets[dev].forward_inference(im, sizes).items()}
+            want = dets[cpu].forward_inference(im.cpu(), sizes.cpu())
+        share = matched_share(got, want, box_atol=0.03, score_atol=1.1e-4)
+        s.say(f"{key}_small_forward", f"features worst rel={worst} valid="
+              f"{want['valid'].sum(1).tolist()} matched={share}")
+        assert worst <= 1e-4, worst
+        assert torch.equal(got["valid"].sum(1), want["valid"].sum(1))
+        assert share == 1.0 and int(want["valid"].sum()) > 0, share
+        init = {d: {k: v.clone() for k, v in dets[d].state_dict().items()}
+                for d in dets}
+        batches = {d: train_batches(2, h, w, s.seed + 5, d) for d in dets}
+        mc, uc, _ = run_step(dets[dev], cfg, *batches[dev], False,
+                             reset=init[dev])
+        mw, uw, _ = run_step(dets[cpu], cfg, *batches[cpu], False,
+                             reset=init[cpu])
+        worst_m = max(abs(mc[k] - mw[k]) / max(abs(mw[k]), 1e-12) for k in mw)
+        ratio, at = delta_bound(uc, uw, 2e-3, 2e-3)
+        fams = sorted({k.split("_")[3] for k in mw if k.startswith("loss_adv")})
+        s.say(f"{key}_small_step", f"families={fams} metrics worst_rel="
+              f"{worst_m} loss_total card/cpu={mc['loss_total']}/"
+              f"{mw['loss_total']} update bound ratio={ratio} at {at}")
+        assert set(mc) == set(mw) and worst_m <= 1e-4, worst_m
+        assert ratio <= 1.0, (ratio, at)
+        assert "CA" in fams
+
+    def check_nms_sets(captured, tag):
+        """Every candidate set captured entering NMS against the plain NMS."""
+        assert captured, f"{tag}: no NMS input captured"
+        for boxes, scores, valid, labels, thr, keep in captured:
+            order = torch.sort(-torch.where(valid, scores, torch.tensor(
+                nms_mod.NEG_INF, device=dev)), dim=-1, stable=True).indices
+            b = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+            v = torch.gather(valid, 1, order)
+            lab = torch.gather(labels, 1, order)
+            want = torch.zeros_like(valid).scatter(
+                1, order, nms_kernel.nms_sorted_plain(b, v, lab, thr))
+            assert torch.equal(keep, want), f"{tag}: NMS sets disagree"
+        v = captured[-1][2]
+        s.say(f"{tag}_nms_candidates", f"{len(captured)} sets, valid_in="
+              f"{v.sum(1).tolist()} K={v.shape[1]}")
+        assert int(v.sum()) > 0, f"{tag}: NMS had no candidates"
+
+    @contextlib.contextmanager
+    def capturing_nms():
+        captured = []
+        real = pp_mod.nms_keep_mask
+
+        def recording(boxes, scores, valid, thr, labels=None, **kw):
+            keep = real(boxes, scores, valid, thr, labels=labels, **kw)
+            captured.append((boxes, scores, valid, labels, thr, keep))
+            return keep
+
+        pp_mod.nms_keep_mask = recording
+        try:
+            yield captured
+        finally:
+            pp_mod.nms_keep_mask = real
+
+    def eval_main(key, path, k2_per_forward):
+        """The eval main path at full width, batch 4, 800x1344, float32 and
+        bf16, through ``compute_predictions``: counters zeroed before and
+        read after (K1 once a forward, K2 ``k2_per_forward`` times, no int8
+        kernel); NMS's candidate sets against the plain NMS; then the bf16
+        forward at batch 8 timed (img/s) with its peak memory."""
+        free_card()
+        im, sizes = images(4, H, W, s.seed)
+        batch = dict(images=im.cpu().numpy(), sizes=sizes.cpu().numpy(),
+                     scales=np.ones((4, 2), np.float32), indices=np.arange(4))
+        dets = {dt: seeded(build_detector(epm(path, dt), device=dev,
+                                          seed=s.seed), cls_bias=-2.0)
+                for dt in ("float32", "bfloat16")}
+        torch.cuda.synchronize()
+        zero_counts()
+        with capturing_nms() as captured:
+            for dt, det in dets.items():
+                preds = compute_predictions(det, [batch], progress_every=0)
+                n = check_preds(preds, 4)
+                s.say(f"{key}_main_{dt}", f"detections={n}")
+                assert all(0 < x <= 100 for x in n), n
+        torch.cuda.synchronize()
+        c = counts()
+        s.say(f"{key}_main_launches", c)
+        assert c["nms_sorted"] == 2, c
+        assert c["vgg_stem_fused"] == 2 * k2_per_forward, c
+        assert not any(c[k] for k in int8_kernels), c
+        check_nms_sets(captured, f"{key}_main")
+        st.setdefault("new_launches", {})[f"{key}_eval"] = {
+            k: v // 2 for k, v in c.items()}
+        det = dets["bfloat16"]
+        del dets
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        im8, sizes8 = images(8, H, W, s.seed + 2)
+        ms = cuda_time(lambda: det.forward_inference(im8, sizes8), 5, 2)
+        s.say(f"{key}_forward_bf16_b8", f"ms={ms} img/s={8e3 / ms} peak_gib="
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30} (batch 8, "
+              f"800x1344, CUDA events over 5 after 2 warm)")
+        st.setdefault("new_times", {})[f"{key}_eval_bf16_b8"] = dict(
+            ms=ms, img_s=8e3 / ms,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        with torch.no_grad():  # the forward cut at its layers, each alone
+            x = det._prep_images(im8)
+            feats = list(det.backbone(x))
+            head = det._head(feats)
+            if det.atss_on:
+                anchors = det._anchors(feats)
+                tail = lambda: atss_postprocess(  # noqa: E731
+                    det.atss_cfg, det.pp_cfg, anchors, *head, sizes8)
+            else:
+                cls_maps, sig = mix_cls_maps(det.test_mode, head[0], None)
+                pp = dataclasses.replace(det.pp_cfg, apply_sigmoid=sig)
+                locs = compute_locations([(f.shape[1], f.shape[2])
+                                          for f in feats], det.strides,
+                                         device=dev)
+                tail = lambda: fcos_postprocess(  # noqa: E731
+                    pp, locs, cls_maps, head[1], head[2], sizes8)
+            parts = {"body": lambda: det.backbone.body(x),
+                     "backbone": lambda: det.backbone(x),
+                     "head": lambda: det._head(feats), "postprocess": tail}
+            for name, fn in parts.items():
+                part_ms = cuda_time(fn, 5, 1)
+                s.say(f"{key}_forward_part_{name}_ms", part_ms)
+                st["new_times"][f"{key}_eval_part_{name}"] = part_ms
+
+    def train_main_new(key, path, k2_per_step, variants):
+        """The DA step at full width, batch 4 + 4 at 800x1344, float32
+        (TF32 off) and bf16 over float32 masters, seeded scenes: per
+        ``variants`` entry (tag, extra opts) one warm step from the seeded
+        state, every loss finite, the frozen parameters and FrozenBN
+        buffers unchanged, every trainable parameter moved, launches K2
+        ``k2_per_step`` a step and nothing else; then 2 steps timed (CUDA
+        events, each from the seeded state) and the peak memory."""
+        free_card()
+        batches = train_batches(4, H, W, s.seed + 10, dev, n_boxes=100, k=16,
+                                scenes=True)
+        for dt in ("float32", "bfloat16"):
+            for tag, opts in variants:
+                cfg = epm(path, dt, opts)
+                det = seeded(build_detector(cfg, device=dev, seed=s.seed,
+                                            train=True))
+                frozen = frozen_state(det)
+                init = {k: v.clone() for k, v in det.state_dict().items()}
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_counts()
+                m, _, _ = run_step(det, cfg, *batches, False)
+                torch.cuda.synchronize()
+                c = counts()
+                after = det.state_dict()
+                moved = {k for k, p in det.named_parameters()
+                         if not torch.equal(p.detach(), init[k])}
+                trainable = {k for k, p in det.named_parameters()
+                             if p.requires_grad}
+                still = [k for k in frozen if not torch.equal(after[k], init[k])]
+                fams = sorted({k.split("_")[3] for k in m
+                               if k.startswith("loss_adv")})
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                s.say(f"{key}_train_{dt}_{tag}", f"loss_total="
+                      f"{m['loss_total']} families={fams} launches={c} "
+                      f"trainable={len(trainable)} moved="
+                      f"{len(moved & trainable)} frozen={len(frozen)} "
+                      f"frozen_changed={len(still)} peak_gib={peak}")
+                assert all(math.isfinite(v) for v in m.values()), m
+                assert moved == trainable, sorted(trainable - moved)[:5]
+                assert not still, still[:5]
+                assert c["vgg_stem_fused"] == k2_per_step, c
+                assert not any(v for k, v in c.items()
+                               if k != "vgg_stem_fused"), c
+                st.setdefault("new_launches", {})[f"{key}_da_step"] = c
+                opt = make_optimizer(cfg, det)
+                step = make_da_train_step(det, opt)
+
+                def timed():
+                    det.load_state_dict(init)
+                    step(None, *batches)
+                ms = cuda_time(timed, 2, 1)
+                s.say(f"{key}_train_{dt}_{tag}_step_ms", f"{ms} ({8e3 / ms} "
+                      "img/s; CUDA events over 2 steps after a warm one, "
+                      "each from the seeded state)")
+                st.setdefault("new_times", {})[f"{key}_da_{dt}_{tag}"] = dict(
+                    ms=ms, img_s=8e3 / ms, peak_gib=peak)
+                if dt == "bfloat16" and hasattr(det.backbone.body, "stem_conv1"):
+                    # what the float32 conv results cost: the same step with
+                    # the body's convs rounding to bf16, in turns
+                    convs = [mm for mm in det.backbone.body.modules()
+                             if isinstance(mm, Conv)]
+                    turns = []
+                    for fo in (True, False, False, True):
+                        for mm in convs:
+                            mm.float_output = fo
+                        turns.append((fo, cuda_time(timed, 2, 1)))
+                    for mm in convs:
+                        mm.float_output = True
+                    s.say(f"{key}_train_bf16_float_output_turns", turns)
+                    st["new_times"][f"{key}_float_output_turns"] = turns
+                del det, opt, step
+                torch.cuda.empty_cache()
+
+    def p_r101_small():
+        small_card_vs_cpu("r101", r101_ca)
+
+    def p_r101_main():
+        eval_main("r101", r101_ca, 0)
+
+    def p_r101_train():
+        train_main_new("r101", r101_ca, 0, [("ga_ca", ())])
+
+    def p_atss_small():
+        small_card_vs_cpu("atss", atss_cfg,
+                          ("MODEL.ADV.USE_DIS_CENTER_AWARE", True))
+
+    def p_atss_main():
+        eval_main("atss", atss_cfg, 1)
+        train_main_new("atss", atss_cfg, 2, [
+            ("ga", ()), ("ga_ca", ("MODEL.ADV.USE_DIS_CENTER_AWARE", True))])
+
+    def p_cli_r101():
+        """31. The entry points on the new configs, from the disk tree:
+        train_net_da on da_ga_ca_cityscapes_R_101_FPN_4x.yaml (its datasets
+        are the tree's C2F sets) with MODEL.WEIGHT the seeded R-101 pickle
+        written into the tree, bf16, batch 4 + 4, MAX_ITER 2, VAL_ITER 2:
+        K1 in validation, no K2; model_final's frozen stem and stage 1 are
+        the pickle's; then test_net on the ATSS config from phase 16's
+        ImageNet VGG16 file over the tree's fogged validation set
+        (DATASETS.TEST cut to it: the config's own car-only set is not in
+        the tree): K1 and K2 launch, its last stdout line is JSON."""
+        free_card()
+        pkl = Path(DatasetCatalog.DATA_DIR) / "pretrained_models" / "R-101.pkl"
+        pkl.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(r101_pickle(), pkl)
+        assert model_zoo.resolve_weight_uri(
+            "catalog://ImageNetPretrained/MSRA/R-101") == str(
+            Path(os.environ["SCAN_TPU_CACHE_DIR"]) / "R-101.pkl")
+        out = tmp_root / "r101_train"
+        zero_counts()
+        t0 = time.time()
+        train_net_da.main(["--config-file", str(r101_ca), "OUTPUT_DIR",
+                           str(out), "MODEL.WEIGHT", str(pkl),
+                           "TPU.COMPUTE_DTYPE", "bfloat16",
+                           "SOLVER.IMS_PER_BATCH", "4", "SOLVER.VAL_ITER", "2",
+                           "SOLVER.CHECKPOINT_PERIOD", "2",
+                           "SOLVER.MAX_ITER", "2"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        c = counts()
+        state = torch.load(out / "model_final.pth", map_location="cpu",
+                           weights_only=True)
+        blobs = st["r101_blobs"]
+        same = all(torch.equal(state["model"][f"backbone.body.{k}"],
+                               torch.from_numpy(v)) for k, v in
+                   convert_c2_resnet(blobs).items()
+                   if k.startswith(("stem_", "layer1_")))
+        s.say("cli_r101_train_net_da", f"wall={wall:.2f} s launches={c} "
+              f"iteration={state['iteration']} frozen body == pickle: {same}")
+        assert state["iteration"] == 2 and same
+        assert c["nms_sorted"] > 0 and c["vgg_stem_fused"] == 0, c
+        assert not any(c[k] for k in int8_kernels), c
+        st.setdefault("new_launches", {})["r101_validation"] = c
+        buf = io.StringIO()
+        zero_counts()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            test_net.main(["--config-file", str(atss_cfg), "MODEL.WEIGHT",
+                           st["imagenet_file"], "OUTPUT_DIR",
+                           str(tmp_root / "atss_test"), "TPU.COMPUTE_DTYPE",
+                           "bfloat16", "TEST.IMS_PER_BATCH", "8",
+                           "DATASETS.TEST", "('cityscapes_foggy_val_cocostyle',)"])
+        torch.cuda.synchronize()
+        c = counts()
+        last = buf.getvalue().strip().splitlines()[-1]
+        s.say("cli_atss_test_net", f"wall={time.time() - t0:.2f} s "
+              f"launches={c} stdout_last={last}")
+        assert {"AP", "AP50"} <= set(json.loads(last))
+        assert c["nms_sorted"] == 4 and c["vgg_stem_fused"] == 4, c
+        st.setdefault("new_launches", {})["atss_validation"] = c
+
     s.phase("build", p_build)
     s.phase("k1_nms_vs_plain", p_nms)
     s.phase("k2_stem_vs_plain", p_stem)
@@ -2360,6 +2808,11 @@ def main(argv=None):
     else:
         s.phase("train_bf16_timing", p_train_bf16_time)
     s.phase("train_ca_out_full_width", p_ca_out)
+    s.phase("resnet_small_card_vs_cpu", p_r101_small)
+    s.phase("r101_main_path_full_width", p_r101_main)
+    s.phase("r101_train_full_width", p_r101_train)
+    s.phase("atss_small_card_vs_cpu", p_atss_small)
+    s.phase("atss_main_path_full_width", p_atss_main)
     s.phase("disk_tree", p_disk_tree)
     if "disk_tree" in s.failed:
         s.failed.append("entry points from disk (skipped)")
@@ -2370,8 +2823,12 @@ def main(argv=None):
         else:
             s.phase("cli_test_net_from_disk", p_cli_test)
         s.phase("cli_train_net_from_disk", p_cli_train_net)
+        s.phase("cli_r101_from_pkl", p_cli_r101)
 
     shutil.rmtree(tmp_root, ignore_errors=True)
+    for k in st.get("kernels") or []:  # launches on the R-101 and ATSS paths
+        for path, c in st.get("new_launches", {}).items():
+            k[f"{path}_launches"] = c[k["name"]]
     s.record["kernels"] = st.get("kernels")
     s.record["failed"] = s.failed
     out_dir = HERE / "chiprun_out"

@@ -4,9 +4,10 @@
 Mirrors the reference catalog (reference ``fcos_core/config/paths_catalog.py:7``)
 for all dataset names used by the SCAN/EPM configs. ``DATA_DIR`` is
 overridable via the ``SCAN_TPU_DATA_DIR`` environment variable, the one
-``scan_tpu`` reads, so one data tree serves both packages. ``scan_tpu``'s
-``ModelCatalog`` (``catalog://`` weight URLs) is not copied: the port
-fetches no weights.
+``scan_tpu`` reads, so one data tree serves both packages. ``ModelCatalog``
+resolves ``catalog://`` weight names to the Detectron URLs, as
+``scan_tpu``'s does; the port fetches nothing, and ``utils/model_zoo.py``
+looks the URL's file up in the local weight cache.
 """
 
 import os
@@ -117,3 +118,69 @@ class DatasetCatalog:
         else:
             raise RuntimeError(f"Dataset not available: {name}")
         return dict(factory=factory, args=args)
+
+
+class ModelCatalog:
+    """``catalog://`` name -> pretrained-weight URL resolution.
+
+    Parity target: reference ``fcos_core/config/paths_catalog.py:184-235``.
+    The catalog names map onto the public Detectron bucket; resolution is
+    pure string logic. Nothing is downloaded: ``utils/model_zoo.py`` finds
+    the URL's file in the local weight cache.
+    """
+
+    S3_C2_DETECTRON_URL = "https://dl.fbaipublicfiles.com/detectron"
+    C2_IMAGENET_MODELS = {
+        "MSRA/R-50": "ImageNetPretrained/MSRA/R-50.pkl",
+        "MSRA/R-50-GN": "ImageNetPretrained/47261647/R-50-GN.pkl",
+        "MSRA/R-101": "ImageNetPretrained/MSRA/R-101.pkl",
+        "MSRA/R-101-GN": "ImageNetPretrained/47592356/R-101-GN.pkl",
+        "FAIR/20171220/X-101-32x8d":
+            "ImageNetPretrained/20171220/X-101-32x8d.pkl",
+        "FAIR/20171220/X-101-64x4d":
+            "ImageNetPretrained/20171220/X-101-64x4d.pkl",
+    }
+    C2_DETECTRON_SUFFIX = (
+        "output/train/{}coco_2014_train%3A{}coco_2014_valminusminival/"
+        "generalized_rcnn/model_final.pkl"
+    )
+    C2_DETECTRON_MODELS = {
+        "35857197/e2e_faster_rcnn_R-50-C4_1x": "01_33_49.iAX0mXvW",
+        "35857345/e2e_faster_rcnn_R-50-FPN_1x": "01_36_30.cUF7QR7I",
+        "35857890/e2e_faster_rcnn_R-101-FPN_1x": "01_38_50.sNxI7sX7",
+        "36761737/e2e_faster_rcnn_X-101-32x8d-FPN_1x": "06_31_39.5MIHi1fZ",
+        "35858791/e2e_mask_rcnn_R-50-C4_1x": "01_45_57.ZgkA7hPB",
+        "35858933/e2e_mask_rcnn_R-50-FPN_1x": "01_48_14.DzEQe4wC",
+        "35861795/e2e_mask_rcnn_R-101-FPN_1x": "02_31_37.KqyEK4tT",
+        "36761843/e2e_mask_rcnn_X-101-32x8d-FPN_1x": "06_35_59.RZotkLKI",
+        "37129812/e2e_mask_rcnn_X-152-32x8d-FPN-IN5k_1.44x":
+            "09_35_36.8pzTQKYK",
+        "37697547/e2e_keypoint_rcnn_R-50-FPN_1x": "08_42_54.kdzV35ao",
+    }
+
+    @staticmethod
+    def get(name: str) -> str:
+        if name.startswith("Caffe2Detectron/COCO"):
+            return ModelCatalog._detectron_baseline(name)
+        if name.startswith("ImageNetPretrained"):
+            key = name[len("ImageNetPretrained/"):]
+            return "/".join([
+                ModelCatalog.S3_C2_DETECTRON_URL,
+                ModelCatalog.C2_IMAGENET_MODELS[key],
+            ])
+        raise RuntimeError(f"model not present in the catalog: {name}")
+
+    @staticmethod
+    def _detectron_baseline(name: str) -> str:
+        dataset_tag = "keypoints_" if "keypoint" in name else ""
+        suffix = ModelCatalog.C2_DETECTRON_SUFFIX.format(
+            dataset_tag, dataset_tag
+        )
+        key = name[len("Caffe2Detectron/COCO/"):]
+        model_id, model_name = key.split("/")
+        signature = ModelCatalog.C2_DETECTRON_MODELS[key]
+        name_with_sig = f"{model_name}.yaml.{signature}"
+        return "/".join([
+            ModelCatalog.S3_C2_DETECTRON_URL, model_id,
+            "12_2017_baselines", name_with_sig, suffix,
+        ])

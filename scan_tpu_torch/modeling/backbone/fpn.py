@@ -27,6 +27,7 @@ class FPN(nn.Module):
                  use_c5_for_p6=False, quant=False):
         super().__init__()
         self.in_features = tuple(in_features)
+        self.out_channels = out_channels
         self.top_block = top_block
         self.use_gn = use_gn
         self.use_relu = use_relu

@@ -17,8 +17,13 @@ heads beside the fp ones over one parameter tree; here an int8 detector's
 backbone, middle head and head are the int8 variants themselves, over the
 same float32 parameters, and it does not train. Discriminator modules are
 attributes named as ``scan_tpu``'s top-level keys (``dis_P3``,
-``dis_P3_CA``, ``dis_P3_OUT``, ``dis_P3_CON``, ...). ATSS is not ported and
-raises.
+``dis_P3_CA``, ``dis_P3_OUT``, ``dis_P3_CON``, ...). Under ``MODEL.ATSS_ON``
+the head is ATSS's (``modeling/atss/atss.py``), chosen before FCOS as
+``scan_tpu`` chooses it (``detector.py:58-67``), under the same name
+``fcos``: its classes and postprocess settings come from ``MODEL.ATSS``,
+its losses from its anchors (on the ``MODEL.FCOS.FPN_STRIDES`` grid, as in
+``scan_tpu``), and it has no ``TEST.MODE`` mixing; the GA, CA and OUT
+discriminators read its score maps as they read FCOS's.
 
 In bfloat16 (``TPU.COMPUTE_DTYPE``) the convolutions and GroupNorms compute
 in bf16, as ``scan_tpu``'s flax ``dtype=`` makes them (``layers.py``). A
@@ -35,6 +40,8 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.locations import compute_locations
+from .anchors import atss_level_sizes, grid_anchors
+from .atss.atss import ATSSConfig, ATSSHead, atss_losses, atss_postprocess
 from .backbone.build import build_backbone
 from .backbone.vgg import VGG16
 from .condgraph.module import CondGraph, CondGraphConfig
@@ -56,8 +63,6 @@ LAYERS = ("P3", "P4", "P5", "P6", "P7")
 class SCANDetector(nn.Module):
     def __init__(self, cfg):
         super().__init__()
-        if cfg.MODEL.ATSS_ON:
-            raise NotImplementedError("ATSS is not ported to scan_tpu_torch yet")
         self.int8_inference = bool(cfg.TPU.get("INT8_INFERENCE", False))
         quant = self.int8_inference
         self.cfg = cfg
@@ -68,6 +73,10 @@ class SCANDetector(nn.Module):
         self.strides = tuple(cfg.MODEL.FCOS.FPN_STRIDES)
         self.num_classes = cfg.MODEL.FCOS.NUM_CLASSES
         self.backbone = build_backbone(cfg, quant)
+        # the FPN's width (RESNETS.BACKBONE_OUT_CHANNELS for a ResNet body),
+        # the input of the head's and the GA/CA discriminators' first convs
+        # (flax infers it; their towers are 256 wide whatever it is)
+        self.channels = self.backbone.fpn.out_channels
         self.condgraph_on = cfg.MODEL.MIDDLE_HEAD.CONDGRAPH_ON
         if self.condgraph_on:
             self.cg_cfg = CondGraphConfig.from_cfg(cfg)
@@ -78,20 +87,30 @@ class SCANDetector(nn.Module):
             self.register_buffer("prototype", torch.zeros(shape))
             self.register_buffer("proto_counter",
                                  torch.tensor(-1, dtype=torch.int32))
-        self.fcos = FCOSHead(
-            num_classes=self.num_classes,
-            num_convs_cls=cfg.MODEL.FCOS.NUM_CONVS_CLS,
-            num_convs_reg=cfg.MODEL.FCOS.NUM_CONVS_REG,
-            prior_prob=cfg.MODEL.FCOS.PRIOR_PROB,
-            with_reg_ctr=cfg.MODEL.FCOS.REG_CTR_ON,
-            num_levels=len(self.strides),
-            quant=quant,
-        )
+        # ATSS_ON > FCOS_ON, as the reference's build_rpn (rpn.py:201-206)
+        self.atss_on = cfg.MODEL.ATSS_ON
+        if self.atss_on:
+            self.atss_cfg = ATSSConfig.from_cfg(cfg)
+            self.num_classes = self.atss_cfg.num_classes
+            self.fcos = ATSSHead(self.atss_cfg, num_levels=len(self.strides),
+                                 quant=quant, input_channels=self.channels)
+        else:
+            self.fcos = FCOSHead(
+                num_classes=self.num_classes,
+                num_convs_cls=cfg.MODEL.FCOS.NUM_CONVS_CLS,
+                num_convs_reg=cfg.MODEL.FCOS.NUM_CONVS_REG,
+                input_channels=self.channels,
+                prior_prob=cfg.MODEL.FCOS.PRIOR_PROB,
+                with_reg_ctr=cfg.MODEL.FCOS.REG_CTR_ON,
+                num_levels=len(self.strides),
+                quant=quant,
+            )
         self.test_mode = cfg.TEST.MODE
+        head_cfg = cfg.MODEL.ATSS if self.atss_on else cfg.MODEL.FCOS
         self.pp_cfg = PostProcessConfig(
-            pre_nms_thresh=cfg.MODEL.FCOS.INFERENCE_TH,
-            pre_nms_top_n=cfg.MODEL.FCOS.PRE_NMS_TOP_N,
-            nms_thresh=cfg.MODEL.FCOS.NMS_TH,
+            pre_nms_thresh=head_cfg.INFERENCE_TH,
+            pre_nms_top_n=head_cfg.PRE_NMS_TOP_N,
+            nms_thresh=head_cfg.NMS_TH,
             fpn_post_nms_top_n=cfg.TEST.DETECTIONS_PER_IMG,
             num_classes=self.num_classes,
             nms_cap=cfg.TPU.get("NMS_CAP", 512),
@@ -126,13 +145,14 @@ class SCANDetector(nn.Module):
             use = adv[f"USE_DIS_{layer}"]
             if adv.USE_DIS_GLOBAL and use:
                 self._add_dis(f"dis_{layer}", FCOSDiscriminator(
-                    num_convs=adv[f"DIS_{layer}_NUM_CONVS"], grl_lambda=grl_w,
+                    num_convs=adv[f"DIS_{layer}_NUM_CONVS"],
+                    input_channels=self.channels, grl_lambda=grl_w,
                     grl_applied_domain=adv.GRL_APPLIED_DOMAIN,
                     patch_stride=adv.PATCH_STRIDE))
             if adv.USE_DIS_CENTER_AWARE and use:
                 self._add_dis(f"dis_{layer}_CA", FCOSDiscriminatorCA(
-                    num_convs=ca_convs, grl_lambda=ca_grl_w,
-                    center_aware_weight=adv.CENTER_AWARE_WEIGHT,
+                    num_convs=ca_convs, input_channels=self.channels,
+                    grl_lambda=ca_grl_w, center_aware_weight=adv.CENTER_AWARE_WEIGHT,
                     center_aware_type=adv.CENTER_AWARE_TYPE,
                     grl_applied_domain=adv.GRL_APPLIED_DOMAIN))
             if adv.USE_DIS_OUT and use:
@@ -187,11 +207,11 @@ class SCANDetector(nn.Module):
 
     def set_compute_dtype(self, cast_params: bool = True):
         """Convolutions, GroupNorms and the VGG stem run in
-        TPU.COMPUTE_DTYPE, as flax's ``dtype=`` does; dense layers, Scales
-        and prototypes stay float32. With ``cast_params`` the conv and
-        GroupNorm parameters are cast to the compute dtype (a detector for
-        evaluation only); without, they stay float32 masters and are cast
-        at use (a detector that trains). The int8 modules keep their
+        TPU.COMPUTE_DTYPE, as flax's ``dtype=`` does; dense layers, Scales,
+        FrozenBatchNorms and prototypes stay float32. With ``cast_params``
+        the conv and GroupNorm parameters are cast to the compute dtype (a
+        detector for evaluation only); without, they stay float32 masters
+        and are cast at use (a detector that trains). The int8 modules keep their
         float32 parameters (they quantize the float32 masters) and take the
         compute dtype for their outputs."""
         for m in self.modules():
@@ -206,6 +226,21 @@ class SCANDetector(nn.Module):
         return self
 
     # ------------------------------------------------------------------ #
+    def _head(self, feats, compute_cls=True):
+        """(logits, bbox_reg, centerness) of the head; ATSS's computes all
+        three always."""
+        if self.atss_on:
+            return self.fcos(feats)
+        return self.fcos(feats, compute_cls)
+
+    def _anchors(self, feats):
+        """The ATSS anchors of each level, on the features' device."""
+        c = self.atss_cfg
+        return grid_anchors(
+            [(f.shape[1], f.shape[2]) for f in feats], self.strides,
+            atss_level_sizes(c.anchor_sizes, c.octave, c.scales_per_octave),
+            c.aspect_ratios, device=feats[0].device)
+
     def _prep_images(self, images):
         """uint8 RGB NHWC -> (BGR*255 - mean) / std in float32; float inputs
         are taken as already normalised (``detector.py:181-194``)."""
@@ -241,10 +276,14 @@ class SCANDetector(nn.Module):
             losses.update(mh_losses)
         score_maps = None
         if mode == "source" or self.need_score_maps:
-            logits, reg, ctr = self.fcos(feats, True)
+            logits, reg, ctr = self._head(feats)
             score_maps = {"box_cls": logits, "box_regression": reg,
                           "centerness": ctr}
-        if mode == "source":
+        if mode == "source" and self.atss_on:
+            losses.update(atss_losses(
+                self.atss_cfg, self._anchors(feats), logits, reg, ctr,
+                targets["boxes"], targets["labels"], targets["mask"]))
+        elif mode == "source":
             shapes = [(f.shape[1], f.shape[2]) for f in feats]
             locations = compute_locations(shapes, self.strides,
                                           device=images.device)
@@ -317,7 +356,7 @@ class SCANDetector(nn.Module):
                 if self.condgraph_on:
                     feats = self.middle_head(feats, self.proto_state(),
                                              "inference")[0]
-                self.fcos(feats, self.test_mode != "light")
+                self._head(feats, self.test_mode != "light")
         return self
 
     @torch.no_grad()
@@ -332,6 +371,11 @@ class SCANDetector(nn.Module):
         if self.condgraph_on:
             feats, _, act_maps, _ = self.middle_head(
                 feats, self.proto_state(), "inference")
+        if self.atss_on:
+            logits, reg, ctr = self._head(feats)
+            return atss_postprocess(self.atss_cfg, self.pp_cfg,
+                                    self._anchors(feats), logits, reg, ctr,
+                                    image_sizes.to(images.device))
         shapes = [(f.shape[1], f.shape[2]) for f in feats]
         compute_cls = self.test_mode != "light"
         logits, reg, ctr = self.fcos(feats, compute_cls)

@@ -55,13 +55,16 @@ class FCOSDiscriminator(nn.Module):
     """Global alignment discriminator (GA, ``discriminators.py:58-80``)."""
 
     def __init__(self, num_convs=2, in_channels=256, grl_lambda=0.1,
-                 grl_applied_domain="both", patch_stride=None):
+                 grl_applied_domain="both", patch_stride=None,
+                 input_channels=None):
         super().__init__()
         self.grl_lambda = grl_lambda
         self.grl_applied_domain = grl_applied_domain
         self.patch_stride = patch_stride
-        self.dis_tower = ConvTower(num_convs, in_channels, in_channels)
-        self.cls_logits = Conv(in_channels, 1, 3, float_output=True)
+        cin = input_channels or in_channels
+        self.dis_tower = ConvTower(num_convs, cin, in_channels)
+        self.cls_logits = Conv(in_channels if num_convs else cin, 1, 3,
+                               float_output=True)
 
     def forward(self, feature, target: float, domain: str = "source"):
         if self.grl_applied_domain == "both" or domain == "target":
@@ -87,7 +90,7 @@ class FCOSDiscriminatorCA(nn.Module):
 
     def __init__(self, num_convs=2, in_channels=256, grl_lambda=0.1,
                  center_aware_weight=20.0, center_aware_type="ca_feature",
-                 grl_applied_domain="both"):
+                 grl_applied_domain="both", input_channels=None):
         super().__init__()
         if center_aware_type not in self.TYPES:
             raise KeyError(f"Unknown center-aware type: {center_aware_type}")
@@ -95,8 +98,10 @@ class FCOSDiscriminatorCA(nn.Module):
         self.center_aware_weight = center_aware_weight
         self.center_aware_type = center_aware_type
         self.grl_applied_domain = grl_applied_domain
-        self.dis_tower = ConvTower(num_convs, in_channels, in_channels)
-        self.cls_logits = Conv(in_channels, 1, 3, float_output=True)
+        cin = input_channels or in_channels
+        self.dis_tower = ConvTower(num_convs, cin, in_channels)
+        self.cls_logits = Conv(in_channels if num_convs else cin, 1, 3,
+                               float_output=True)
 
     def forward(self, feature, target: float, score_map, domain="source"):
         """feature (B, H, W, C) NHWC; score_map holds this level's

@@ -112,11 +112,16 @@ def fcos_postprocess(cfg: PostProcessConfig, locations, box_cls,
         all_scores.append(s)
         all_labels.append(l)
         all_valid.append(v)
-    boxes = torch.cat(all_boxes, 1)
-    scores = torch.cat(all_scores, 1)
-    labels = torch.cat(all_labels, 1)
-    valid = torch.cat(all_valid, 1)
+    return select_detections(cfg, torch.cat(all_boxes, 1),
+                             torch.cat(all_scores, 1),
+                             torch.cat(all_labels, 1), torch.cat(all_valid, 1))
 
+
+def select_detections(cfg: PostProcessConfig, boxes, scores, labels, valid):
+    """The candidates of every level, (B, N, ...), to the output: the top
+    NMS_CAP by score, per-class NMS, then the top DETECTIONS_PER_IMG, the
+    score sqrt'd (``postprocess.py``'s tail, which the ATSS postprocess
+    shares, ``atss.py:580-609``)."""
     # cap the combined candidates before the O(K^2) NMS
     cap = min(cfg.nms_cap, boxes.shape[1])
     ranked = torch.where(valid, scores, torch.full_like(scores, NEG_INF))

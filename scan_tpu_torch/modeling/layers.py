@@ -304,6 +304,38 @@ class GroupNorm32(nn.GroupNorm):
         self.bias.zero_()
 
 
+class FrozenBatchNorm(nn.Module):
+    """BatchNorm with fixed statistics (``scan_tpu/modeling/layers.py:185-204``;
+    reference ``layers/batch_norm.py:6-25``) over NHWC tensors.
+
+    ``weight``, ``bias``, ``running_mean`` and ``running_var`` are float32
+    buffers under ``scan_tpu``'s names: they are loaded, never trained, and
+    ``set_compute_dtype`` leaves them float32. The output is
+    ``x * (w * rsqrt(var + 1e-5)) + (b - mean * scale)``; on a bf16 input it
+    is float32, as JAX's promotion against the float32 parameters makes it,
+    so the ReLUs and residual adds of a bf16 ResNet run in float32 and the
+    next ``Conv`` casts down. ``scan_tpu`` adds ``eps`` 1e-5, which
+    maskrcnn-benchmark's ``FrozenBatchNorm2d`` does not; the port follows
+    ``scan_tpu`` (ROADMAP queue C)."""
+
+    def __init__(self, channels, eps=1e-5):
+        super().__init__()
+        self.eps = eps
+        for name, value in (("weight", 1.0), ("bias", 0.0),
+                            ("running_mean", 0.0), ("running_var", 1.0)):
+            self.register_buffer(name, torch.full((channels,), value))
+
+    def forward(self, x):
+        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+        return x * scale + (self.bias - self.running_mean * scale)
+
+    @torch.no_grad()
+    def init_parameters(self, gen: torch.Generator):
+        for name, value in (("weight", 1.0), ("bias", 0.0),
+                            ("running_mean", 0.0), ("running_var", 1.0)):
+            getattr(self, name).fill_(value)
+
+
 class ConvTower(nn.Module):
     """num_convs x [conv3x3 -> (GN) -> ReLU]; the FCOS/condgraph tower.
     Submodules are named ``conv{i}`` / ``gn{i}`` as in ``scan_tpu``; with

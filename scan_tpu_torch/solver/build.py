@@ -10,8 +10,11 @@ groups. A parameter is a bias when the last component of its name is
 LayerNorm's ``bias`` are biases, ``TorchRNN``'s ``bias_ih_l0`` is not. The
 parameters that do not require grad stay out of the optimizer, so they
 take neither an update nor weight decay, as under optax's ``set_to_zero``:
-the model decides which are frozen (``VGG16`` builds stages 1-2,
-conv0..conv3, frozen, as ``scan_tpu``'s ``_frozen_checker`` freezes them).
+the model decides which are frozen, as ``scan_tpu``'s ``_frozen_checker``
+freezes them (``solver/build.py:59-97``): ``VGG16`` builds stages 1-2,
+conv0..conv3, frozen; ``ResNet`` builds its stem frozen from
+FREEZE_CONV_BODY_AT 1 and stage k from k + 1, and its FrozenBatchNorms hold
+buffers, which no optimizer sees.
 
 ``make_lr_scheduler`` gives each group WarmupMultiStep as a ``LambdaLR``
 factor: the optimizer's step k (k = 0, 1, ...) runs at

@@ -4,9 +4,11 @@
     python -m scan_tpu_torch.tools.test_net --config-file configs/scan/....yaml \\
         MODEL.WEIGHT path/to/model_final.pth [KEY VALUE ...]
 
-Builds the detector on ``MODEL.DEVICE`` (the card unless ``cpu`` is given),
-one loader per ``DATASETS.TEST`` name, loads ``MODEL.WEIGHT`` without the
-discriminators, evaluates each dataset and prints the results as one JSON
+Builds the detector of any config in ``configs/`` (VGG16 or R-101 body,
+FCOS or ATSS head) on ``MODEL.DEVICE`` (the card unless ``cpu`` is given),
+one loader per ``DATASETS.TEST`` name, loads ``MODEL.WEIGHT`` (a port
+checkpoint, a reference ``.pth``, a Detectron ``.pkl``, or a URL or
+``catalog://`` name from the weight cache) without the discriminators, evaluates each dataset and prints the results as one JSON
 line (a dict per dataset when there are several). Under
 ``TPU.INT8_INFERENCE`` each dataset gets its own static activation scales,
 calibrated over its first ``TPU.INT8_CALIB_BATCHES`` batches from the

@@ -10,9 +10,11 @@ Sets ``MODEL.DA_ON`` False, builds the detector for training on
 bf16 ``TPU.COMPUTE_DTYPE``), one SGD over the trainable parameters with
 WarmupMultiStep, and the loader of ``DATASETS.TRAIN_SOURCE`` (else
 ``DATASETS.TRAIN``), and runs ``do_train_plain`` with periodic
-checkpoints in ``OUTPUT_DIR``. ``MODEL.WEIGHT`` is loaded first: an ImageNet
-VGG16 or a reference SCAN ``.pth`` (an ``http(s)`` URL from the local
-weight cache, ``utils/model_zoo.py``) or a port checkpoint. A run that
+checkpoints in ``OUTPUT_DIR``, for any config in ``configs/`` (VGG16,
+R-101 or ATSS). ``MODEL.WEIGHT`` is loaded first: an ImageNet VGG16 or a
+reference SCAN ``.pth``, a Detectron ``.pkl`` for a ResNet body (a file or a
+``catalog://`` name), an ``http(s)`` URL from the local weight cache
+(``utils/model_zoo.py``), or a port checkpoint. A run that
 finds ``last_checkpoint`` in ``OUTPUT_DIR`` resumes from it instead, and the
 loader skips to the restored iteration. ``--distributed`` and
 ``TPU.DEBUG_NANS`` are not ported and raise.

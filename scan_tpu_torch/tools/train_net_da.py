@@ -10,10 +10,15 @@ Builds the detector for training on ``MODEL.DEVICE`` (the card unless
 its per-level discriminators, one SGD over the trainable parameters with
 WarmupMultiStep, the source, target and validation loaders, and runs the
 DA loop with in-training validation, periodic and best-AP50 checkpoints in
-``OUTPUT_DIR``. ``MODEL.WEIGHT`` is loaded first: an ImageNet VGG16 or a
-reference SCAN ``.pth`` (an ``http(s)`` URL from the local weight cache,
-``utils/model_zoo.py``; nothing is fetched, a file missing there raises)
-or a port checkpoint. A run that finds its ``last_checkpoint`` in
+``OUTPUT_DIR``. Every config in ``configs/`` runs as written: the VGG16
+ones, the R-101 ones (``R-101-FPN-RETINANET``) and the ATSS one.
+``MODEL.WEIGHT`` is loaded first: an ImageNet VGG16 or a reference SCAN
+``.pth``, a Detectron ``.pkl`` (the ImageNet R-101 of
+``catalog://ImageNetPretrained/MSRA/R-101`` or a file path; into the ResNet
+body, at iteration 0, no solver state), an ``http(s)`` URL or ``catalog://``
+name resolved to the local weight cache (``utils/model_zoo.py``; nothing is
+fetched, a file missing there raises with its path), or a port checkpoint
+(``./model_GA.pth`` of a GA run). A run that finds its ``last_checkpoint`` in
 ``OUTPUT_DIR`` resumes from it instead: the parameters, prototype,
 momentum and schedule are restored and both training streams skip to the
 restored iteration. ``--distributed`` and ``--use-tensorboard`` are not

@@ -26,8 +26,12 @@ SCAN checkpoint, see ``torch_weights.py``) loads as ``scan_tpu``'s
 ``_load_torch`` loads it (``checkpoint.py:155-177``): iteration 0, no
 optimizer or scheduler state, ``load_dis`` honoured, the prototype loaded
 and its counter kept, components the file lacks left as they are, and an
-unknown key or a shape mismatch raising. An ``http(s)`` URL resolves to
-its file in the local weight cache (``model_zoo.py``); nothing is fetched.
+unknown key or a shape mismatch raising. A Detectron ``.pkl`` (the
+ImageNet ResNet of the EPM R-101 configs, read by ``c2_loading.py``'s
+restricted unpickler) loads into the ResNet body alone: iteration 0, no
+optimizer or scheduler state, the rest of the detector as it was. An
+``http(s)`` URL or a ``catalog://`` name resolves to its file in the local
+weight cache (``model_zoo.py``); nothing is fetched.
 """
 
 import logging
@@ -37,7 +41,7 @@ from typing import Optional
 import torch
 
 from ..modeling.layers import NO_SCALE, is_scale_key
-from . import torch_weights
+from . import c2_loading, torch_weights
 from .model_zoo import is_uri, resolve_weight_uri
 
 logger = logging.getLogger("scan_tpu_torch.checkpoint")
@@ -94,6 +98,10 @@ class Checkpointer:
             resolved = resolve_weight_uri(f)
             logger.info("%s resolved to %s", f, resolved)
             f = resolved
+        blobs = c2_loading.load_c2_pickle(f)
+        if blobs is not None:  # an ImageNet body: iteration 0, no solver
+            self._load_c2(f, blobs)
+            return 0
         state = torch.load(f, map_location="cpu", weights_only=True)
         if not isinstance(state, dict):
             raise ValueError(f"{f} holds no state dict")
@@ -141,6 +149,30 @@ class Checkpointer:
             det.prototype.copy_(prototype)  # the counter is kept
         logger.info("loaded %d reference entries of %s from %s (iteration "
                     "0)", len(converted), sorted(loaded), path)
+
+    @torch.no_grad()
+    def _load_c2(self, path, blobs: dict):
+        """Copy a Detectron pickle's blobs into the ResNet body, keeping
+        each tensor's device and dtype; a blob with no place there or of
+        another shape raises."""
+        body = self.detector.backbone.body
+        if not hasattr(body, "stem_conv1"):
+            raise ValueError(
+                f"{path} is a Detectron ResNet pickle, and this detector's "
+                f"body is {type(body).__name__}")
+        own = body.state_dict()
+        converted = c2_loading.convert_c2_resnet(blobs)
+        for k, v in converted.items():
+            if k not in own:
+                raise KeyError(f"{path}: blob for {k}, which the "
+                               f"{type(body).__name__} body does not have")
+            if tuple(own[k].shape) != v.shape:
+                raise ValueError(
+                    f"shape mismatch loading {path}: backbone.body.{k} is "
+                    f"{tuple(own[k].shape)} here, {v.shape} in the file")
+            own[k].copy_(torch.from_numpy(v))
+        logger.info("loaded %d ResNet body entries from the Detectron "
+                    "pickle %s (iteration 0)", len(converted), path)
 
     @torch.no_grad()
     def _load_model(self, path, saved: dict, load_dis: bool):

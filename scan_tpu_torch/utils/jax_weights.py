@@ -11,7 +11,11 @@ wrapper scopes (``Conv_0``, ``GroupNorm_0``) and converting layouts:
   * conv kernel (kh, kw, I, O) -> weight (O, I, kh, kw);
   * dense kernel (I, O) -> weight (O, I);
   * GroupNorm / LayerNorm ``scale`` -> ``weight`` (``Scale``'s stays ``scale``);
-  * ``TorchRNN`` weights are in torch layout already.
+  * ``TorchRNN`` weights are in torch layout already;
+  * a ResNet body's FrozenBatchNorm ``weight``, ``bias``, ``running_mean``
+    and ``running_var`` (parameters in ``scan_tpu``'s tree) land in the
+    port's buffers of those names; the ATSS head sits under ``fcos`` with
+    FCOS's names.
 
 The static int8 activation scales of a calibrated tree, the
 ``act_scales`` collection beside ``params``, go into the port's scale

@@ -11,10 +11,10 @@ names the path where the file should be put. This is the part of
 ``scan_tpu``'s behaviour that needs no network; its ``_download`` is not
 ported, and nothing here creates a directory.
 
-``catalog://`` names point at Detectron ``.pkl`` files through
-``ModelCatalog``, which the port's ``config/paths_catalog.py`` does not
-have: loading them needs ``c2_loading.py``, part of the long tail not yet
-ported, so they raise.
+A ``catalog://`` name (``catalog://ImageNetPretrained/MSRA/R-101``) resolves
+through ``config/paths_catalog.py::ModelCatalog`` to its Detectron URL, and
+that URL to its file in the cache, as above (``R-101.pkl``). Such a file is
+a Detectron pickle, which ``utils/c2_loading.py`` reads.
 """
 
 import os
@@ -48,20 +48,21 @@ def is_uri(f: str) -> bool:
 
 def resolve_weight_uri(f: str, model_dir: str = None) -> str:
     """A ``catalog://`` or ``http(s)://`` weight name -> its local file.
-    Other names pass unchanged. Raises for ``catalog://`` and for a URL
+    Other names pass unchanged. Raises for a URL (a catalog name's too)
     whose file is not in the cache."""
+    name = f
     if f.startswith("catalog://"):
-        raise ValueError(
-            f"{f}: catalog:// weights are Detectron .pkl files, which need "
-            "the c2_loading converter; it is not ported to scan_tpu_torch "
-            "yet. Give a .pth file or an http(s) URL of one")
+        from ..config.paths_catalog import ModelCatalog
+
+        f = ModelCatalog.get(f[len("catalog://"):])
+        name = f"{name} ({f})"
     if not f.startswith(("http://", "https://")):
         return f
     model_dir = model_dir or default_cache_dir()
     cached = os.path.join(model_dir, url_to_filename(f))
     if not os.path.isfile(cached):
         raise ValueError(
-            f"{f} is not in the weight cache and scan_tpu_torch fetches "
+            f"{name} is not in the weight cache and scan_tpu_torch fetches "
             f"nothing: put the file at {cached} (the cache directory is "
             "$SCAN_TPU_CACHE_DIR, else $TORCH_MODEL_ZOO, else "
             "$TORCH_HOME/models, else ~/.torch/models)")

@@ -29,7 +29,9 @@ entries are renames into ``scan_tpu``'s names, which the port carries
   * ``cond_2`` is dead in the RNN path and dropped there;
   * the CKA heads ``classifier_cls_{c}.{0,2}`` are ``classifier_cls_{c}_{0,1}``.
 
-It converts what ``scan_tpu`` converts and no more: the GA, CA and OUT
+It converts what ``scan_tpu`` converts and no more: the backbone of a
+detector whose body is not VGG (a ResNet) raises, naming the missing
+converter, rather than map a ResNet file with the VGG one; the GA, CA and OUT
 discriminators of a reference file, its ``edge_project_*`` layers and its
 optimizer states are not read. A component the detector lacks (a
 ``middle_head`` without the condgraph, a discriminator the config does not
@@ -196,6 +198,16 @@ def convert_reference(state: Dict, detector) -> Tuple[
     detector lacks are skipped (``scan_tpu/utils/checkpoint.py:155-177``)."""
     cfg = detector.cfg
     out, prototype = {}, None
+    body = cfg.MODEL.BACKBONE.CONV_BODY
+    if not body.startswith("VGG") and (
+            "model_backbone" in state or is_imagenet_vgg(state)):
+        raise NotImplementedError(
+            f"a reference-layout backbone for the {body} body: only the "
+            "VGG16 converter is ported (as in scan_tpu, whose "
+            "torch_weights.py converts VGG bodies alone); a reference "
+            "(fcos_core) ResNet .pth needs a ResNet converter, which "
+            "neither package has. Start a ResNet from a Detectron .pkl or a "
+            "port checkpoint")
 
     def add(prefix, entries):
         out.update({f"{prefix}.{k}": v for k, v in entries.items()})

@@ -37,6 +37,16 @@
   2; ``remove_solver_states`` on the run's directory drops exactly
   ``optimizer`` and ``scheduler``; ``test_net`` loads the slim file and
   prints its JSON line.
+* ``test_net`` on ``configs/epm/da_ga_sim10k_VGG_16_FPN_4x_atss.yaml``
+  (ATSS, VGG width / 8) from a port checkpoint of a seeded detector, over
+  the config's own test set (a car-only COCO set written here): its JSON
+  line has AP and AP50, and the forward ran the ATSS head.
+* ``train_net_da`` on ``configs/epm/da_ga_cityscapes_R_101_FPN_4x.yaml``
+  (R-101 at narrow widths) from its own ``MODEL.WEIGHT``,
+  ``catalog://ImageNetPretrained/MSRA/R-101``, a seeded Detectron pickle
+  found through ``SCAN_TPU_CACHE_DIR``: 2 iterations; the log names the
+  pickle at iteration 0, ``model_final`` holds iteration 2, and the frozen
+  stem and stage 1 still hold the pickle's values.
 """
 
 import json
@@ -70,6 +80,7 @@ from scan_tpu_torch.tools import (remove_solver_states, test_net, train_net,
 from scan_tpu_torch.utils.checkpoint import Checkpointer
 from scan_tpu_torch.utils.jax_weights import convert_params, load_jax_params
 from scan_tpu_torch.utils.logger import setup_logger
+from tests.test_torch_c2_loading import detectron_blobs, write_pickle
 from tests.test_torch_data import coco_tree, make_trees
 from tests.test_torch_reference_weights import imagenet_vgg
 
@@ -377,3 +388,87 @@ def test_train_net_matches_scan_tpu_resumes_and_slims(setup, monkeypatch,
         "MODEL.DEVICE", "cpu", "MODEL.WEIGHT", slim,
         "OUTPUT_DIR", str(setup["root"] / "slim_test"))])
     assert last_json(capsys) == ret and {"AP", "AP50"} <= set(ret)
+
+
+EPM = os.path.join(os.path.dirname(__file__), "..", "configs", "epm")
+SMALL = ["MODEL.DEVICE", "cpu", "INPUT.MIN_SIZE_TEST", 96,
+         "INPUT.MAX_SIZE_TEST", 128, "TEST.IMS_PER_BATCH", 2,
+         "TPU.LOADER_THREADS", 2]
+
+
+def test_test_net_on_the_atss_config(setup, tmp_path, capsys):
+    cfg_file = os.path.join(EPM, "da_ga_sim10k_VGG_16_FPN_4x_atss.yaml")
+    ann_dir = os.path.join(setup["data"], "Cityscapes", "cocoAnnotations")
+    with open(os.path.join(ann_dir, f"{DIM}.json")) as f:
+        ann = json.load(f)
+    car = ann["categories"][0]["id"]
+    ann["annotations"] = [dict(a, category_id=1) for a in ann["annotations"]
+                          if a["category_id"] == car]
+    ann["categories"] = [dict(ann["categories"][0], id=1, name="car")]
+    with open(os.path.join(ann_dir, "cityscapes_val_caronly_cocostyle.json"),
+              "w") as f:
+        json.dump(ann, f)
+    opts = SMALL + ["TPU.VGG_WIDTH_DIV", 8]
+    cfg = get_default_cfg()
+    cfg.merge_from_file(cfg_file)
+    cfg.merge_from_list(opts)
+    det = build_detector(cfg, device="cpu", seed=3)
+    assert type(det.fcos).__name__ == "ATSSHead"
+    weight = Checkpointer(str(tmp_path / "ckpt"), det).save("atss")
+    calls = []
+    real = det.fcos.__class__.forward
+
+    def counting(self, feats):
+        calls.append(len(feats))
+        return real(self, feats)
+
+    capsys.readouterr()
+    try:
+        det.fcos.__class__.forward = counting
+        ret = test_net.main(["--config-file", cfg_file, *map(str, opts),
+                             "MODEL.WEIGHT", weight,
+                             "OUTPUT_DIR", str(tmp_path / "out")])
+    finally:
+        det.fcos.__class__.forward = real
+    assert last_json(capsys) == ret and {"AP", "AP50"} <= set(ret)
+    assert calls and set(calls) == {5}
+
+
+def test_train_net_da_r101_from_a_detectron_pickle(setup, tmp_path, caplog,
+                                                   monkeypatch):
+    cfg_file = os.path.join(EPM, "da_ga_cityscapes_R_101_FPN_4x.yaml")
+    narrow = ["MODEL.RESNETS.RES2_OUT_CHANNELS", 32,
+              "MODEL.RESNETS.STEM_OUT_CHANNELS", 16,
+              "MODEL.RESNETS.BACKBONE_OUT_CHANNELS", 32]
+    cfg = get_default_cfg()
+    cfg.merge_from_file(cfg_file)
+    cfg.merge_from_list(narrow)
+    assert cfg.MODEL.WEIGHT == "catalog://ImageNetPretrained/MSRA/R-101"
+    body = build_detector(cfg, device="cpu").backbone.body
+    blobs = detectron_blobs(body, seed=9)
+    cache = tmp_path / "cache"
+    cache.mkdir()
+    write_pickle(cache / "R-101.pkl", blobs)
+    monkeypatch.setenv("SCAN_TPU_CACHE_DIR", str(cache))
+    out = str(tmp_path / "r101_out")
+    caplog.set_level("INFO", logger="scan_tpu_torch")
+    train_net_da.main(["--config-file", cfg_file, *map(str, SMALL + narrow + [
+        "OUTPUT_DIR", out, "TPU.MAX_BOXES", 4,
+        "INPUT.MIN_SIZE_RANGE_TRAIN", (-1, -1), "INPUT.MIN_SIZE_TRAIN", (96,),
+        "INPUT.MAX_SIZE_TRAIN", 128, "SOLVER.IMS_PER_BATCH", 2,
+        "SOLVER.MAX_ITER", 2, "SOLVER.VAL_ITER", 2,
+        "SOLVER.CHECKPOINT_PERIOD", 2])])
+    assert "from the Detectron pickle" in caplog.text
+    assert "R-101.pkl (iteration 0)" in caplog.text
+    assert "validation @2" in caplog.text
+    state = torch.load(os.path.join(out, "model_final.pth"), weights_only=True)
+    assert state["iteration"] == 2
+    model = state["model"]
+    assert torch.equal(model["backbone.body.stem_conv1.weight"],
+                       torch.from_numpy(blobs["conv1_w"]))
+    assert torch.equal(model["backbone.body.layer1_block2.conv3.weight"],
+                       torch.from_numpy(blobs["res2_2_branch2c_w"]))
+    assert torch.equal(model["backbone.body.layer1_block0.downsample_bn.bias"],
+                       torch.from_numpy(blobs["res2_0_branch1_bn_b"]))
+    assert not torch.equal(model["backbone.body.layer4_block2.conv3.weight"],
+                           torch.from_numpy(blobs["res5_2_branch2c_w"]))

@@ -60,7 +60,9 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
                  "utils.checkpoint", "utils.logger", "utils.collect_env",
                  "utils.model_zoo", "utils.torch_weights",
                  "tools.test_net", "tools.train_net_da", "tools.train_net",
-                 "tools.remove_solver_states"):
+                 "tools.remove_solver_states", "modeling.backbone.resnet",
+                 "modeling.anchors", "modeling.retinanet",
+                 "modeling.atss.atss", "data.stats", "utils.c2_loading"):
         assert "scan_tpu_torch." + name in res["modules"], name
     assert res["bad"] == []
     if not res["cuda"]:

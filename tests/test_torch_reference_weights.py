@@ -27,7 +27,11 @@ the dead ``cond_2``) and the non-RNN one (``cond_nx1`` + ``cond_nx1_norm``,
 * An ``http(s)`` URL resolves through ``SCAN_TPU_CACHE_DIR`` (and the other
   cache variables, in ``scan_tpu``'s order) to a cached file; a missing one
   raises naming the path to put it at, and nothing touches the network;
-  ``catalog://`` raises.
+  a ``catalog://`` name resolves to the same cache (the missing file's
+  path named; present, the Detectron pickle loads into a ResNet body and a
+  VGG detector refuses it).
+* A reference-layout backbone for a ResNet body raises, naming the missing
+  converter.
 """
 
 import os
@@ -51,6 +55,9 @@ from scan_tpu_torch.utils import model_zoo
 from scan_tpu_torch.utils import torch_weights
 from scan_tpu_torch.utils.checkpoint import Checkpointer
 from scan_tpu_torch.utils.jax_weights import convert_params
+
+from test_torch_c2_loading import detectron_blobs, write_pickle
+from test_torch_resnet import narrow_cfg
 
 C2F = os.path.join(os.path.dirname(__file__), "..", "configs", "scan",
                    "scan_vgg16_cityscapace_to_foggy.yaml")
@@ -379,11 +386,44 @@ def test_url_resolves_to_the_cache_only(tmp_path, monkeypatch, no_network):
     assert ck.load(URL) == 0
     assert torch.equal(det.state_dict()["backbone.body.conv5.weight"],
                        sd["features.12.weight"])
-    with pytest.raises(ValueError, match="c2_loading"):
-        ck.load("catalog://ImageNetPretrained/MSRA/R-101")
+    # a catalog:// name resolves through ModelCatalog to the same cache:
+    # missing, the error names the path; present, the pickle loads (into a
+    # ResNet body: a VGG detector refuses it)
+    catalog = "catalog://ImageNetPretrained/MSRA/R-101"
+    pkl = str(cache / "R-101.pkl")
+    with pytest.raises(ValueError, match="fetches nothing") as e:
+        ck.load(catalog)
+    assert pkl in str(e.value)
+    r101 = build_detector(narrow_cfg(get_default_cfg(), depth=101),
+                          device="cpu")
+    blobs = detectron_blobs(r101.backbone.body, seed=3)
+    write_pickle(pkl, blobs)
+    with pytest.raises(ValueError, match="Detectron ResNet pickle"):
+        ck.load(catalog)
+    assert Checkpointer(str(tmp_path / "r101"), r101).load(catalog) == 0
+    assert torch.equal(r101.state_dict()["backbone.body.stem_conv1.weight"],
+                       torch.from_numpy(blobs["conv1_w"]))
     assert model_zoo.url_to_filename(
         "https://dl.fbaipublicfiles.com/detectron/36/model_final.pkl") == \
         "_detectron_36_model_final.pkl"
+
+
+def test_reference_file_for_a_resnet_body_raises(tmp_path):
+    """A reference-layout file's backbone (an ImageNet VGG16 or a SCAN
+    checkpoint's ``model_backbone``) given to a detector whose body is not
+    VGG raises, naming the missing converter, rather than being mapped by
+    the VGG converter."""
+    det = build_detector(narrow_cfg(get_default_cfg(), depth=50),
+                         device="cpu")
+    ck = Checkpointer(str(tmp_path / "out"), det)
+    vgg = str(tmp_path / "vgg.pth")
+    torch.save(imagenet_vgg(seed=2), vgg)
+    full = str(tmp_path / "full.pth")
+    torch.save({"model_backbone": {f"body.{k}": v for k, v in
+                                   imagenet_vgg(seed=3).items()}}, full)
+    for f in (vgg, full):
+        with pytest.raises(NotImplementedError, match="ResNet converter"):
+            ck.load(f)
 
 
 def test_cache_dir_order(monkeypatch, tmp_path):

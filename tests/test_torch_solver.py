@@ -9,6 +9,10 @@
   the frozen VGG stages 1-2 ("frozen", then out of the optimizer with
   ``requires_grad`` False), GroupNorm's ``bias`` a bias, ``TorchRNN``'s
   ``bias_ih_l0`` not, the ``dis_*`` trees in "discriminator".
+* The R-101 body's parameters (narrow widths) against ``label_fn`` at
+  FREEZE_CONV_BODY_AT 0, 2 and 5: every FrozenBatchNorm tensor frozen (a
+  buffer in the port), the frozen stem and stages out of the optimizer
+  with ``requires_grad`` False, the rest in ``backbone`` / ``backbone/bias``.
 * ``load_jax_params`` carries the whole DA tree (``dis_P*_CON``, the MHA,
   the node classifier) strictly: a key removed or added raises.
 """
@@ -153,3 +157,62 @@ def test_weight_bridge_carries_the_da_tree(models):
     extra = dict(params, dis_P9_CON=params["dis_P3_CON"])
     with pytest.raises(KeyError, match="dis_P9_CON"):
         load_jax_params(tdet, extra)
+
+
+@pytest.fixture(scope="module")
+def r101_backbone_params():
+    from scan_tpu.modeling.backbone.build import build_backbone as jbuild
+    from test_torch_resnet import narrow_cfg
+
+    jbb = jbuild(narrow_cfg(jax_default_cfg(), depth=101))
+    return jax.device_get(jbb.init(jax.random.PRNGKey(0),
+                                   jnp.zeros((1, 64, 96, 3), jnp.float32)))
+
+
+@pytest.mark.parametrize("freeze_at", [0, 2, 5])
+def test_resnet_param_groups_follow_scan_tpu(r101_backbone_params, freeze_at):
+    """The R-101 body's parameters against ``label_fn``: FrozenBatchNorm is
+    always frozen (the port holds it in buffers), ``stem_*`` from
+    FREEZE_CONV_BODY_AT 1, ``layer{k}`` from k + 1; the rest train in
+    ``backbone`` / ``backbone/bias``."""
+    from test_torch_resnet import narrow_cfg
+
+    params = {"backbone": r101_backbone_params}
+    labels = _jax_labels(narrow_cfg(jax_default_cfg(), 101, freeze_at=freeze_at),
+                         params)
+    codes = {}
+
+    def code_tree(lab, arr):
+        if isinstance(lab, dict):
+            return {k: code_tree(lab[k], arr[k]) for k in lab}
+        return np.full(np.shape(arr), codes.setdefault(lab, len(codes)),
+                       np.float32)
+
+    coded = convert_params(code_tree(labels, params))
+    names = {v: k for k, v in codes.items()}
+    want = {k: names[int(t.flatten()[0])] for k, t in coded.items()}
+    cfg = narrow_cfg(get_default_cfg(), 101, freeze_at=freeze_at)
+    tdet = build_detector(cfg, device="cpu")
+    opt = make_optimizer(cfg, tdet)
+    by_id = {id(p): n for n, p in tdet.named_parameters()}
+    got = {by_id[id(p)]: g["label"] for g in opt.param_groups
+           for p in g["params"]}
+    params_ = dict(tdet.named_parameters())
+    buffers = {n for n, _ in tdet.named_buffers()}
+    assert set(want) == {k for k in set(params_) | buffers
+                         if k.startswith("backbone.")}
+    n_frozen = 0
+    for name, label in want.items():
+        if label == "frozen":
+            n_frozen += 1
+            assert name in buffers or not params_[name].requires_grad, name
+            assert name not in got, name
+        else:
+            assert params_[name].requires_grad and got[name] == label, name
+    body_trained = {n for n in got if n.startswith("backbone.body.")}
+    assert bool(body_trained) == (freeze_at < 5)
+    assert any(n.startswith("backbone.body.stem_") for n in got) == (
+        freeze_at == 0)
+    assert any(n.startswith("backbone.body.layer1_") for n in got) == (
+        freeze_at < 2)
+    assert n_frozen >= 4 * 104  # R-101's 104 FrozenBatchNorms, 4 tensors each

@@ -21,6 +21,13 @@ dropout.
 * A trajectory of three steps, ``forward_target`` False, False, True, in the
   pattern of ``docs/parity/trajectory_ab.md``: every step's metrics within
   rtol 1e-4 and its prototype state within 1e-4.
+* One GA + CA DA step of ``configs/epm/da_ga_ca_cityscapes_R_101_FPN_4x.yaml``
+  with an R-50 body at narrow widths (``tests/test_torch_resnet.py``'s,
+  He-scaled kernels and seeded FrozenBatchNorm statistics), the
+  head's and discriminators' towers cut to 1 conv: the metrics within
+  rtol 1e-5 and every update within the bound above; the stem, stage 1
+  and every FrozenBatchNorm tensor move in neither package
+  (FREEZE_CONV_BODY_AT 2).
 * One DA step of ``configs/epm/da_ga_ca_cityscapes_VGG_16_FPN_4x.yaml``
   (GA + center-aware discriminators, no condgraph), and one with
   ``MODEL.ADV.USE_DIS_OUT`` too (no config in ``configs/`` turns OUT on),
@@ -121,18 +128,20 @@ def reference():
     return init, batches, one, traj
 
 
-def _check_updates(params, want_params, before, det):
+def _check_updates(params, want_params, before, det, frozen=None):
     """Every parameter's update against scan_tpu's, within 1e-4 of the
     tensor's largest update + 1e-4 of the whole update's largest; frozen
-    tensors (VGG stages 1-2) move in neither package."""
+    tensors (VGG stages 1-2 unless ``frozen`` names others) move in neither
+    package."""
     p0, p1 = convert_params(params), convert_params(want_params)
     want = {k: (p1[k] - p0[k]).numpy() for k in p0}
     after = det.state_dict()
     got = {k: (after[k] - before[k]).numpy() for k in p0}
     scale = max(float(np.abs(d).max()) for d in want.values())
     assert scale > 1e-3
-    frozen = {f"backbone.body.conv{i}.{t}" for i in range(4)
-              for t in ("weight", "bias")}
+    if frozen is None:
+        frozen = {f"backbone.body.conv{i}.{t}" for i in range(4)
+                  for t in ("weight", "bias")}
     for k in want:
         moved = np.abs(want[k]).max() > 0
         assert moved == (np.abs(got[k]).max() > 0), k
@@ -218,3 +227,52 @@ def test_epm_ca_out_step_matches(out):
     assert got_proto is None
     _check_metrics(metrics, jax.device_get(want_metrics), 1e-5)
     _check_updates(params, new_params, before, det)
+
+
+R101 = os.path.join(os.path.dirname(__file__), "..", "configs", "epm",
+                    "da_ga_ca_cityscapes_R_101_FPN_4x.yaml")
+EPM_CUT_1 = tuple(x for p in ("P3", "P4", "P5", "P6", "P7")
+                  for x in (f"MODEL.ADV.DIS_{p}_NUM_CONVS", 1,
+                            f"MODEL.ADV.CA_DIS_{p}_NUM_CONVS", 1))
+
+
+def test_r50_ga_ca_step_matches():
+    from test_torch_resnet import he_scaled
+
+    # 1-conv towers in the head and the discriminators: the step compiles
+    # faster, and every layer type still trains
+    opts = EPM_CUT_1 + ("MODEL.BACKBONE.CONV_BODY", "R-50-FPN-RETINANET",
+                        "MODEL.FCOS.NUM_CONVS_CLS", 1,
+                        "MODEL.FCOS.NUM_CONVS_REG", 1,
+                      "MODEL.RESNETS.RES2_OUT_CHANNELS", 32,
+                      "MODEL.RESNETS.STEM_OUT_CHANNELS", 16,
+                      "MODEL.RESNETS.BACKBONE_OUT_CHANNELS", 32)
+    cfg = tiny_cfg(jax_default_cfg(), R101, opts)
+    jdet = jax_build_detector(cfg)
+    bs, bt = make_batches(2)
+    params, _ = jdet.init_params(jax.random.PRNGKey(2),
+                                 jnp.asarray(bs["images"]))
+    params = jax.device_get(params)
+    params["backbone"] = dict(params["backbone"])
+    params["backbone"]["params"] = dict(params["backbone"]["params"])
+    params["backbone"]["params"]["body"] = he_scaled(
+        params["backbone"]["params"]["body"], np.random.RandomState(5))
+    opt = jax_make_optimizer(cfg, params)
+    new_params, _, _, want_metrics = jax_make_step(jdet, opt)(
+        params, opt.init(params), None,
+        {k: jnp.asarray(v) for k, v in bs.items()},
+        {"images": jnp.asarray(bt["images"])}, forward_target=False)
+    new_params = jax.device_get(new_params)
+    families = {k.split("_")[3] for k in want_metrics if k.startswith("loss_adv")}
+    assert families == {"GA", "CA"}
+
+    det, step = _port(params, None, R101, opts)
+    assert type(det.backbone.body).__name__ == "ResNet"
+    before = {k: v.clone() for k, v in det.state_dict().items()}
+    _, metrics = step(None, bs, bt)
+    _check_metrics(metrics, jax.device_get(want_metrics), 1e-5)
+    frozen = {k for k in convert_params(params)
+              if k.startswith(("backbone.body.stem_", "backbone.body.layer1_"))
+              or "bn" in k.rsplit(".", 2)[-2]}
+    assert len(frozen) > 4 * 53
+    _check_updates(params, new_params, before, det, frozen)

@@ -193,6 +193,32 @@ spread above INFERENCE_TH and NMS has work), after phase 20:
      config's car-only set is not in the tree), K1 and K2 4 times each, its
      last stdout line JSON.
 
+The two-stage detector (``modeling/generalized_rcnn.py::FasterRCNN``;
+maskrcnn-benchmark's e2e_mask_rcnn_R_50_FPN_1x and
+e2e_keypoint_rcnn_R_50_FPN_1x set in code, the R-50 body from a seeded
+Detectron blob set, cls_score's bias at 3 for classes 1-4 so ML-NMS has
+candidates, SGD at 0.0025), after phase 30:
+
+ 32. ``two_stage_small_card_vs_cpu``: both configs at full width, 128x192,
+     64 proposals and 20 detections an image, float32, TF32 off, card
+     against CPU from the same weights: K1's keep masks against the plain
+     NMS, the card's and the CPU's keep masks and detections compared
+     (flips counted), every loss within rtol 1e-4, one SGD update within
+     2e-3 + 2e-3;
+ 33. ``mask_rcnn_main_path_full_width``: batch 2 at 800x1344, eval in
+     float32 and bf16 (K1 6 times a forward, every NMS set against the
+     plain version, masks (2, 100, 28, 28)), the bf16 eval timed and cut at
+     its parts (ROIAlign's share of the RoI stage), 2 SGD steps in float32
+     and bf16 over masters (K1 5 times a step, every trainable parameter
+     moved, the frozen ones not), each timed from the seeded state; then at
+     scan_tpu's PRE_NMS_TOP_N 6000 / 12,000: K1 at K = 6000 and 12,000 on
+     real proposals, each set against the plain version;
+ 34. ``keypoint_rcnn_full_width``: the bf16 eval (keypoints (2, 100, 17,
+     3)), timed and cut, and one SGD step in float32 and bf16, timed.
+
+Phase 3 also holds K1 to its plain version at K = 2049, 4096, 6000 and
+12,000 and times it at K = 1000-12,000 (B = 2, the RPN's IoU 0.7).
+
 Every number is printed with the card's name and power limit; everything is
 also written to ``chiprun_out/chip_smoke.json``. The line before the last is
 the per-kernel JSON; the last line is the device JSON.
@@ -487,8 +513,15 @@ def main(argv=None):
                 torch.gather(labels, 1, order).to(dev))
 
     def p_nms():
-        for k in (512, 1000):
-            boxes, valid, labels = sorted_set(4, k, 8, s.seed + k)
+        lib = build.load("nms")
+        lib.scan_nms_max_k.restype = ctypes.c_int
+        assert lib.scan_nms_max_k() == nms_kernel.MAX_K, lib.scan_nms_max_k()
+        # K past the earlier design's 2048 too: the RPN's K is 6000 a level
+        # at scan_tpu's test default and 12,000 at its train default
+        for k in (512, 1000, 2049, 4096, 6000, 12000):
+            b = 4 if k <= 1000 else 2
+            boxes, valid, labels = sorted_set(b, k, 8, s.seed + k)
+            boxes = boxes * max(1.0, (k / 1000) ** 0.5)  # a fair share kept
             for tag, lab in (("nolabels", None), ("int64_labels", labels),
                              ("int32_labels", labels.int())):
                 got = nms_kernel.nms_sorted(boxes, valid, lab, 0.6)
@@ -500,6 +533,37 @@ def main(argv=None):
                       f"valid={int(valid.sum())}")
                 if n_diff:
                     raise AssertionError(f"K1 keep masks differ at K={k}")
+                assert 0 < int(want.sum()) < int(valid.sum()), k
+        # K1 at the RPN's K, B = 2: the raw launch in a CUDA graph (device
+        # time) and the wrapper, beside the bound (the IoU pairs on the
+        # CUDA cores; the bytes are a few hundred KB)
+        times = {}
+        for k in (1000, 2000, 6000, 12000):
+            boxes, valid, labels = sorted_set(2, k, 8, s.seed + k + 1)
+            boxes = boxes * max(1.0, (k / 1000) ** 0.5)
+            words = (k + 63) // 64
+            buf = torch.empty(2 * k * (8 * words + 1), dtype=torch.uint8,
+                              device=dev)
+            keep = buf[2 * k * 8 * words:].view(torch.bool).view(2, k)
+            launch = nms_kernel._lib()
+
+            def raw():
+                err = launch(boxes.data_ptr(), valid.data_ptr(), None, 0, 2, k,
+                             0.7, 1, buf.data_ptr(), keep.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream)
+                assert err == 0, f"nms: CUDA error {err}"
+            dev_ms = graph_ms(raw, n=10, reps=5)
+            assert torch.equal(keep, nms_kernel.nms_sorted_plain(
+                boxes, valid, None, 0.7)), f"K1's timed launch at K={k}"
+            wrap_ms = cuda_time(lambda: nms_kernel.nms_sorted(
+                boxes, valid, None, 0.7), 20)
+            ops = 2 * k * (k - 1) / 2 * 14
+            nbytes = boxes.numel() * 4 + 2 * valid.numel()
+            bound = max(ops / PEAK_FP32_S, nbytes / PEAK_BYTES_S) * 1e3
+            times[k] = dict(ms=dev_ms, wrapper_ms=wrap_ms, bound_ms=bound)
+            s.say(f"time_k1_K{k}", f"graph_ms={dev_ms} wrapper_ms={wrap_ms} "
+                  f"bound_ms={bound} (B=2, no labels, IoU 0.7 as the RPN)")
+        st["k1_by_k"] = times
 
     # ---- 4 ------------------------------------------------------------
     def p_stem():
@@ -631,7 +695,7 @@ def main(argv=None):
                 nms_mod.NEG_INF, device=dev)), dim=-1, stable=True).indices
             b = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
             v = torch.gather(valid, 1, order)
-            lab = torch.gather(labels, 1, order)
+            lab = None if labels is None else torch.gather(labels, 1, order)
             want = torch.zeros_like(valid).scatter(
                 1, order, nms_kernel.nms_sorted_plain(b, v, lab, thr))
             s.say("main_precision_nms_candidates",
@@ -2530,7 +2594,7 @@ def main(argv=None):
                 nms_mod.NEG_INF, device=dev)), dim=-1, stable=True).indices
             b = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
             v = torch.gather(valid, 1, order)
-            lab = torch.gather(labels, 1, order)
+            lab = None if labels is None else torch.gather(labels, 1, order)
             want = torch.zeros_like(valid).scatter(
                 1, order, nms_kernel.nms_sorted_plain(b, v, lab, thr))
             assert torch.equal(keep, want), f"{tag}: NMS sets disagree"
@@ -2773,6 +2837,418 @@ def main(argv=None):
         assert c["nms_sorted"] == 4 and c["vgg_stem_fused"] == 4, c
         st.setdefault("new_launches", {})["atss_validation"] = c
 
+    # ---- 32-34: the two-stage detector (Faster / Mask / Keypoint R-CNN) --
+    from scan_tpu_torch.modeling import roi_heads as roi_mod
+    from scan_tpu_torch.modeling import rpn_anchor as rpn_mod
+    from scan_tpu_torch.modeling.generalized_rcnn import FasterRCNN
+    box_scales = (0.25, 0.125, 0.0625, 0.03125)
+
+    def rcnn_cfg(kind, dtype="float32", pre_test=1000, pre_train=2000,
+                 post=None, dets=100):
+        """maskrcnn-benchmark's configs/e2e_mask_rcnn_R_50_FPN_1x.yaml
+        (``kind`` "mask") or e2e_keypoint_rcnn_R_50_FPN_1x.yaml
+        ("keypoint"), set in code on the defaults; ``pre_test`` /
+        ``pre_train`` are the RPN's PRE_NMS_TOP_N_TEST / _TRAIN (the
+        configs' 1000 / 2000; scan_tpu's defaults 6000 / 12000). ``post``
+        cuts POST_NMS_TOP_N_TEST / _TRAIN (1000 / 2000) and ``dets``
+        DETECTIONS_PER_IMG (100), scale only, for the CPU's side of a
+        card-against-CPU check."""
+        cfg = get_default_cfg()
+        m = cfg.MODEL
+        m.BACKBONE.CONV_BODY = "R-50-FPN"
+        m.RESNETS.BACKBONE_OUT_CHANNELS = 256
+        r = m.RPN
+        r.USE_FPN = True
+        r.ANCHOR_STRIDE = (4, 8, 16, 32, 64)
+        r.PRE_NMS_TOP_N_TRAIN, r.PRE_NMS_TOP_N_TEST = pre_train, pre_test
+        r.POST_NMS_TOP_N_TEST = r.FPN_POST_NMS_TOP_N_TEST = post or 1000
+        r.POST_NMS_TOP_N_TRAIN = post or 2000
+        m.ROI_HEADS.DETECTIONS_PER_IMG = dets
+        m.ROI_HEADS.USE_FPN = True
+        b = m.ROI_BOX_HEAD
+        b.FEATURE_EXTRACTOR, b.PREDICTOR = "FPN2MLPFeatureExtractor", "FPNPredictor"
+        b.POOLER_RESOLUTION, b.POOLER_SCALES = 7, box_scales
+        b.POOLER_SAMPLING_RATIO, b.MLP_HEAD_DIM = 2, 1024
+        b.NUM_CLASSES = 81 if kind == "mask" else 2
+        head = m.ROI_MASK_HEAD if kind == "mask" else m.ROI_KEYPOINT_HEAD
+        head.POOLER_RESOLUTION, head.POOLER_SCALES = 14, box_scales
+        head.POOLER_SAMPLING_RATIO = 2
+        head.SHARE_BOX_FEATURE_EXTRACTOR = False
+        if kind == "mask":
+            head.FEATURE_EXTRACTOR = "MaskRCNNFPNFeatureExtractor"
+            head.PREDICTOR, head.RESOLUTION = "MaskRCNNC4Predictor", 28
+            m.MASK_ON = True
+        else:
+            head.NUM_CLASSES, head.RESOLUTION = 17, 56
+            m.KEYPOINT_ON = True
+        cfg.INPUT.MIN_SIZE_TRAIN, cfg.INPUT.MAX_SIZE_TRAIN = (800,), 1333
+        cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST = 800, 1333
+        cfg.DATALOADER.SIZE_DIVISIBILITY = 32
+        cfg.TPU.COMPUTE_DTYPE = dtype
+        return cfg
+
+    def rcnn(kind, dtype, device, train=False, **kw):
+        """``FasterRCNN`` with seeded weights, the body from a seeded
+        Detectron blob set at its scales (``detectron_r101`` fits any
+        depth), and cls_score's bias at 3 for classes 1-4: at random init
+        81-way scores are ~0.012, under SCORE_THRESH 0.05, and ML-NMS would
+        have no candidate."""
+        det = FasterRCNN(rcnn_cfg(kind, dtype, **kw), device=device,
+                         seed=s.seed, train=train)
+        blobs = detectron_r101(det.backbone.body, s.seed + 90)["blobs"]
+        det.backbone.body.load_state_dict(
+            {k: torch.from_numpy(v) for k, v in
+             convert_c2_resnet(blobs).items()})
+        if kind == "mask":
+            with torch.no_grad():
+                det.roi_box.cls_score.bias[1:5] = 3.0
+        return det
+
+    def rcnn_batch(kind, b, h, w, seed, device, n_gt=8):
+        """Normalised seeded scenes (BGR255 less PIXEL_MEAN) with n_gt
+        boxes an image in 16 slots, their bitmap masks (the box less a
+        2 px border) and 17 visible keypoints inside each."""
+        g = torch.Generator().manual_seed(seed)
+        boxes, labels, mask = gt_boxes(g, b, h, w, 16, n_gt)
+        if kind != "mask":
+            labels = mask.int()
+        im = scene(g, boxes, labels, mask, h, w)
+        cfg = rcnn_cfg(kind)
+        x = (im.float().flip(-1) - torch.tensor(cfg.INPUT.PIXEL_MEAN)) \
+            / torch.tensor(cfg.INPUT.PIXEL_STD)
+        tg = dict(boxes=boxes, labels=labels, mask=mask)
+        if kind == "mask":
+            gm = torch.zeros(b, 16, h, w, dtype=torch.uint8)
+            for i in range(b):
+                for j in range(n_gt):
+                    x0, y0, x1, y1 = (int(v) for v in boxes[i, j])
+                    gm[i, j, y0 + 2:min(y1, h) - 2, x0 + 2:min(x1, w) - 2] = 1
+            tg["gt_masks"] = gm
+        else:
+            kp = torch.zeros(b, 16, 17, 3)
+            lo, span = boxes[..., :2], (boxes[..., 2:] - boxes[..., :2])
+            kp[..., :2] = lo[:, :, None] + torch.rand(b, 16, 17, 2,
+                                                      generator=g) * span[:, :, None]
+            kp[..., 2] = 2.0 * mask[:, :, None]
+            tg["gt_keypoints"] = kp
+        sizes = torch.tensor([[h, w]] * b, dtype=torch.int32)
+        return (x.contiguous().to(device), sizes.to(device),
+                {k: v.to(device) for k, v in tg.items()})
+
+    @contextlib.contextmanager
+    def capturing_rcnn_nms():
+        """Record every NMS the RPN and the box postprocess run."""
+        captured = []
+        mods = (rpn_mod, roi_mod)
+        reals = [m.nms_keep_mask for m in mods]
+
+        def recording(boxes, scores, valid, thr, labels=None, **kw):
+            keep = reals[0](boxes, scores, valid, thr, labels=labels, **kw)
+            captured.append((boxes, scores, valid, labels, thr, keep))
+            return keep
+
+        for m in mods:
+            m.nms_keep_mask = recording
+        try:
+            yield captured
+        finally:
+            for m, real in zip(mods, reals):
+                m.nms_keep_mask = real
+
+    def moved_and_frozen(det, init):
+        frozen = frozen_state(det)
+        after = det.state_dict()
+        moved = {k for k, p in det.named_parameters()
+                 if not torch.equal(p.detach(), init[k])}
+        trainable = {k for k, p in det.named_parameters() if p.requires_grad}
+        still = [k for k in frozen if not torch.equal(after[k], init[k])]
+        return moved, trainable, still
+
+    def sgd(det):
+        # maskrcnn-benchmark's SOLVER (BASE_LR 0.02 at IMS_PER_BATCH 16,
+        # momentum 0.9, decay 1e-4), the rate scaled linearly to batch 2
+        return torch.optim.SGD([p for p in det.parameters() if p.requires_grad],
+                               lr=0.0025, momentum=0.9, weight_decay=1e-4)
+
+    def rcnn_step(det, opt, x, sizes, tg):
+        losses = det.forward_train(x, tg, sizes)
+        opt.zero_grad(set_to_none=True)
+        sum(losses.values()).backward()
+        opt.step()
+        return {k: float(v.detach()) for k, v in losses.items()}
+
+    def p_two_stage_small():
+        """32. Card against CPU at 128x192, full width, float32, TF32 off,
+        the same seeded weights, Mask R-CNN and Keypoint R-CNN: K1's keep
+        masks on the card equal the plain NMS on the same inputs; the card's
+        and the CPU's keep masks and detections compared (near ties that
+        float32 rounding moves are counted and printed); every loss within
+        rtol 1e-4; one SGD step's update of every parameter within 2e-3 of
+        its tensor's largest + 2e-3 of the whole update's (p_train_small's
+        bound)."""
+        h, w = 128, 192
+        cpu = torch.device("cpu")
+        for kind in ("mask", "keypoint"):
+            # 64 proposals and 20 detections an image: the CPU's side runs
+            # the full-width heads (the keypoint head's 8 x 512 convs) too
+            dets = {d: rcnn(kind, "float32", d, train=True, post=64, dets=20)
+                    for d in (dev, cpu)}
+            data = {d: rcnn_batch(kind, 2, h, w, s.seed + 30, d)
+                    for d in (dev, cpu)}
+            outs, caps = {}, {}
+            for d in (dev, cpu):
+                with capturing_rcnn_nms() as captured, torch.no_grad():
+                    outs[d] = dets[d].forward_inference(*data[d][:2])
+                caps[d] = captured
+            check_nms_sets(caps[dev], f"two_stage_small_{kind}")
+            flips = [int((a[5].cpu() != b[5]).sum())
+                     for a, b in zip(caps[dev], caps[cpu])]
+            got = {k: v.cpu() for k, v in outs[dev].items()}
+            want = outs[cpu]
+            share = matched_share(got, want, box_atol=0.03, score_atol=1.1e-4)
+            v = want["valid"]
+            branch = "masks" if kind == "mask" else "keypoints"
+            both = v & got["valid"]
+            s.say(f"two_stage_small_{kind}_forward", f"valid={v.sum(1).tolist()}"
+                  f" card={got['valid'].sum(1).tolist()} matched={share} "
+                  f"keep-mask flips card/cpu per NMS={flips} {branch} max diff "
+                  f"on slots valid in both="
+                  f"{float((got[branch][both] - want[branch][both]).abs().max())}")
+            assert len(caps[dev]) == 6 and int(v.sum()) > 0, len(caps[dev])
+            assert share >= 0.98, share
+            init = {d: {k: t.clone() for k, t in dets[d].state_dict().items()}
+                    for d in dets}
+            losses, upd = {}, {}
+            for d in dets:
+                losses[d] = rcnn_step(dets[d], sgd(dets[d]), data[d][0],
+                                      data[d][1], data[d][2])
+                upd[d] = {k: (t.detach().cpu() - init[d][k].cpu()) for k, t in
+                          dets[d].named_parameters() if t.requires_grad}
+            worst = max(abs(losses[dev][k] - losses[cpu][k])
+                        / max(abs(losses[cpu][k]), 1e-12) for k in losses[cpu])
+            ratio, at = delta_bound(upd[dev], upd[cpu], 2e-3, 2e-3)
+            s.say(f"two_stage_small_{kind}_step", f"losses card={losses[dev]} "
+                  f"cpu={losses[cpu]} worst_rel={worst} update bound ratio="
+                  f"{ratio} at {at}")
+            assert worst <= 1e-4, worst
+            assert ratio <= 1.0, (ratio, at)
+            assert all(losses[cpu][k] > 0 for k in losses[cpu]), losses[cpu]
+            del dets
+        torch.cuda.empty_cache()
+
+    def rcnn_eval(key, det, x, sizes, expect_branch):
+        """One eval forward with the counters zeroed before and read after
+        (K1 once a level in the RPN and once in the box head), the NMS sets
+        against the plain version, and the branch's output checked."""
+        torch.cuda.synchronize()
+        zero_counts()
+        with capturing_rcnn_nms() as captured, torch.no_grad():
+            out = det.forward_inference(x, sizes)
+        torch.cuda.synchronize()
+        c = counts()
+        check_nms_sets(captured, key)
+        nv = out["valid"].sum(1).tolist()
+        ks = [cap[2].shape[1] for cap in captured]
+        s.say(f"{key}_eval", f"launches={c} K per NMS={ks} valid={nv}")
+        assert c["nms_sorted"] == 6, c
+        assert not any(v for k, v in c.items() if k != "nms_sorted"), c
+        assert all(n > 0 for n in nv), nv
+        assert tuple(out[expect_branch].shape[:2]) == (
+            2, det.box_cfg.detections_per_img)
+        for t in out.values():
+            assert torch.isfinite(t.float()).all()
+        st.setdefault("new_launches", {})[key] = c
+        return out, ks
+
+    def rcnn_train(key, kind, dtype, x, sizes, tg, steps=2, **kw):
+        """``steps`` SGD steps from the seeded state, the counters read
+        after (K1 5 times a step, in the RPN), then the step timed."""
+        det = rcnn(kind, dtype, dev, train=True, **kw)
+        opt = sgd(det)
+        init = {k: v.clone() for k, v in det.state_dict().items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with capturing_rcnn_nms() as captured:
+            losses = [rcnn_step(det, opt, x, sizes, tg) for _ in range(steps)]
+        torch.cuda.synchronize()
+        c = counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        moved, trainable, still = moved_and_frozen(det, init)
+        assert all(p.dtype == torch.float32 for p in det.parameters())
+        s.say(f"{key}_train_{dtype}", f"losses={losses} launches={c} "
+              f"trainable={len(trainable)} moved={len(moved & trainable)} "
+              f"frozen_changed={len(still)} peak_gib={peak}")
+        assert all(math.isfinite(v) and v >= 0 for ls in losses
+                   for v in ls.values()), losses
+        assert all(v > 0 for v in losses[0].values()), losses[0]
+        assert moved == trainable and not still, sorted(trainable - moved)[:5]
+        assert c["nms_sorted"] == 5 * steps, c
+        assert not any(v for k, v in c.items() if k != "nms_sorted"), c
+        st.setdefault("new_launches", {})[f"{key}_train_step"] = {
+            k: v // steps for k, v in c.items()}
+        def timed():
+            det.load_state_dict(init)
+            rcnn_step(det, opt, x, sizes, tg)
+        ms = cuda_time(timed, 2, 1)
+        s.say(f"{key}_train_{dtype}_step_ms", f"{ms} ({2e3 / ms} img/s; "
+              "batch 2 at 800x1344, CUDA events over 2 steps after a warm "
+              "one, each from the seeded state)")
+        st.setdefault("new_times", {})[f"{key}_train_{dtype}"] = dict(
+            ms=ms, img_s=2e3 / ms, peak_gib=peak)
+        return det, captured
+
+    def rcnn_roi_share(key, det, x, sizes, train_rois=None):
+        """The eval forward cut at its layers, each timed alone; the share
+        of the RoI stage (poolers, box head, postprocess, branch head) that
+        the poolers (ROIAlign) take."""
+        with torch.no_grad():
+            feats = list(det.backbone(x))
+            obj, reg = det.rpn(feats)
+            anchors = det._anchors(feats, det.rpn_cfg_test)
+            props = rpn_mod.rpn_proposals(det.rpn_cfg_test, anchors, obj, reg,
+                                          sizes)
+            b, n = props["boxes"].shape[:2]
+            rois = props["boxes"].reshape(-1, 4)
+            bidx = torch.arange(b, device=dev).repeat_interleave(n)
+            pooled = roi_mod.fpn_pooler(det.box_cfg, feats[:4], rois, bidx)
+            cls, bb = det.roi_box(pooled)
+            dets_ = roi_mod.roi_box_postprocess(
+                det.box_cfg, cls.reshape(b, n, -1), bb.reshape(b, n, -1),
+                props["boxes"], props["valid"], sizes)
+            drois = dets_["boxes"].reshape(-1, 4)
+            dbidx = torch.arange(b, device=dev).repeat_interleave(
+                drois.shape[0] // b)
+            bcfg = det.mask_cfg if det.mask_on else det.kp_cfg
+            bhead = det.roi_mask if det.mask_on else det.roi_keypoint
+            bpooled = roi_mod.pool_branch(det.box_cfg, bcfg, feats[:4], drois,
+                                          dbidx)
+            parts = {
+                "backbone": lambda: det.backbone(x),
+                "rpn_head": lambda: det.rpn(feats),
+                "proposals": lambda: rpn_mod.rpn_proposals(
+                    det.rpn_cfg_test, anchors, obj, reg, sizes),
+                "box_pooler": lambda: roi_mod.fpn_pooler(
+                    det.box_cfg, feats[:4], rois, bidx),
+                "box_head": lambda: det.roi_box(pooled),
+                "box_postprocess": lambda: roi_mod.roi_box_postprocess(
+                    det.box_cfg, cls.reshape(b, n, -1), bb.reshape(b, n, -1),
+                    props["boxes"], props["valid"], sizes),
+                "branch_pooler": lambda: roi_mod.pool_branch(
+                    det.box_cfg, bcfg, feats[:4], drois, dbidx),
+                "branch_head": lambda: bhead(bpooled),
+            }
+            if train_rois is not None:  # the training RoIs, 2 x 2000
+                tr, tb = train_rois
+                parts["train_box_pooler"] = lambda: roi_mod.fpn_pooler(
+                    det.box_cfg, feats[:4], tr, tb)
+                tpooled = roi_mod.fpn_pooler(det.box_cfg, feats[:4], tr, tb)
+                parts["train_box_head"] = lambda: det.roi_box(tpooled)
+                parts["train_branch_pooler"] = lambda: roi_mod.pool_branch(
+                    det.box_cfg, bcfg, feats[:4], tr, tb)
+                tbp = roi_mod.pool_branch(det.box_cfg, bcfg, feats[:4], tr, tb)
+                parts["train_branch_head"] = lambda: bhead(tbp)
+            times = {k: cuda_time(fn, 5, 1) for k, fn in parts.items()}
+        roi = ("box_pooler", "box_head", "box_postprocess", "branch_pooler",
+               "branch_head")
+        share = (times["box_pooler"] + times["branch_pooler"]) / sum(
+            times[k] for k in roi)
+        times["roi_align_share_eval"] = share
+        if train_rois is not None:
+            tro = ("train_box_pooler", "train_box_head", "train_branch_pooler",
+                   "train_branch_head")
+            times["roi_align_share_train_forward"] = (
+                times["train_box_pooler"] + times["train_branch_pooler"]) / sum(
+                times[k] for k in tro)
+        s.say(f"{key}_parts_ms", times)
+        st.setdefault("new_times", {})[f"{key}_parts"] = times
+
+    def p_mask_rcnn_main():
+        """33. Mask R-CNN R-50-FPN (e2e_mask_rcnn_R_50_FPN_1x) at full width,
+        batch 2 at 800x1344: eval in float32 and bf16 (masks (2, 100, 28,
+        28)), 2 SGD steps in float32 and in bf16 over masters, timed, peak
+        memory; then at scan_tpu's PRE_NMS_TOP_N 6000 / 12000, so that K1
+        runs at K = 6000 and 12,000 on real proposals, each set held to
+        the plain NMS; ROIAlign's share of the RoI stage."""
+        free_card()
+        x, sizes, tg = rcnn_batch("mask", 2, H, W, s.seed + 31, dev, n_gt=12)
+        for dt in ("float32", "bfloat16"):
+            det = rcnn("mask", dt, dev)
+            out, _ = rcnn_eval(f"mask_rcnn_eval_{dt}", det, x, sizes, "masks")
+            assert tuple(out["masks"].shape) == (2, 100, 28, 28)
+            if dt == "bfloat16":
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_time(lambda: det.forward_inference(x, sizes), 5, 2)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                s.say("mask_rcnn_eval_bf16_ms", f"{ms} ({2e3 / ms} img/s; "
+                      f"peak {peak} GiB; batch 2 at 800x1344, CUDA events "
+                      "over 5 after 2 warm)")
+                st.setdefault("new_times", {})["mask_rcnn_eval_bf16"] = dict(
+                    ms=ms, img_s=2e3 / ms, peak_gib=peak)
+                with torch.no_grad():  # the training RoIs for the share
+                    feats = list(det.backbone(x))
+                    obj, reg = det.rpn(feats)
+                    props = rpn_mod.rpn_proposals(
+                        det.rpn_cfg_train,
+                        det._anchors(feats, det.rpn_cfg_train), obj, reg,
+                        sizes)
+                tr = props["boxes"].reshape(-1, 4)
+                tb = torch.arange(2, device=dev).repeat_interleave(
+                    tr.shape[0] // 2)
+                rcnn_roi_share("mask_rcnn_bf16", det, x, sizes, (tr, tb))
+            del det
+            torch.cuda.empty_cache()
+        st["new_launches"]["mask_rcnn_eval"] = st["new_launches"].pop(
+            "mask_rcnn_eval_float32")
+        st["new_launches"].pop("mask_rcnn_eval_bfloat16")
+        for dt in ("float32", "bfloat16"):
+            det, _ = rcnn_train("mask_rcnn", "mask", dt, x, sizes, tg)
+            del det
+            torch.cuda.empty_cache()
+        # scan_tpu's defaults: K = 6000 a level at test, 12,000 at train
+        det = rcnn("mask", "bfloat16", dev, pre_test=6000, pre_train=12000)
+        _, ks = rcnn_eval("mask_rcnn_eval_pre6000", det, x, sizes, "masks")
+        assert max(ks) == 6000, ks
+        st["new_launches"].pop("mask_rcnn_eval_pre6000")
+        del det
+        torch.cuda.empty_cache()
+        det, captured = rcnn_train("mask_rcnn_pre12000", "mask", "bfloat16",
+                                   x, sizes, tg, steps=1, pre_test=6000,
+                                   pre_train=12000)
+        ks = [cap[2].shape[1] for cap in captured]
+        check_nms_sets(captured, "mask_rcnn_train_pre12000")
+        s.say("mask_rcnn_train_pre12000_K", ks)
+        assert max(ks) == 12000, ks
+        del det, captured
+        torch.cuda.empty_cache()
+
+    def p_keypoint_rcnn():
+        """34. Keypoint R-CNN R-50-FPN (e2e_keypoint_rcnn_R_50_FPN_1x: 2
+        classes, 17 keypoints, 8 x 512 convs) at full width, batch 2 at
+        800x1344: the bf16 eval (keypoints (2, 100, 17, 3)), timed, and
+        one SGD step in float32 and in bf16 over masters, timed."""
+        free_card()
+        x, sizes, tg = rcnn_batch("keypoint", 2, H, W, s.seed + 32, dev,
+                                  n_gt=12)
+        det = rcnn("keypoint", "bfloat16", dev)
+        out, _ = rcnn_eval("keypoint_rcnn_eval", det, x, sizes, "keypoints")
+        assert tuple(out["keypoints"].shape) == (2, 100, 17, 3)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_time(lambda: det.forward_inference(x, sizes), 5, 2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        s.say("keypoint_rcnn_eval_bf16_ms", f"{ms} ({2e3 / ms} img/s; peak "
+              f"{peak} GiB)")
+        st.setdefault("new_times", {})["keypoint_rcnn_eval_bf16"] = dict(
+            ms=ms, img_s=2e3 / ms, peak_gib=peak)
+        rcnn_roi_share("keypoint_rcnn_bf16", det, x, sizes)
+        del det
+        torch.cuda.empty_cache()
+        for dt in ("float32", "bfloat16"):
+            det, _ = rcnn_train("keypoint_rcnn", "keypoint", dt, x, sizes, tg,
+                                steps=1)
+            del det
+            torch.cuda.empty_cache()
+
     s.phase("build", p_build)
     s.phase("k1_nms_vs_plain", p_nms)
     s.phase("k2_stem_vs_plain", p_stem)
@@ -2813,6 +3289,9 @@ def main(argv=None):
     s.phase("r101_train_full_width", p_r101_train)
     s.phase("atss_small_card_vs_cpu", p_atss_small)
     s.phase("atss_main_path_full_width", p_atss_main)
+    s.phase("two_stage_small_card_vs_cpu", p_two_stage_small)
+    s.phase("mask_rcnn_main_path_full_width", p_mask_rcnn_main)
+    s.phase("keypoint_rcnn_full_width", p_keypoint_rcnn)
     s.phase("disk_tree", p_disk_tree)
     if "disk_tree" in s.failed:
         s.failed.append("entry points from disk (skipped)")
@@ -2826,9 +3305,11 @@ def main(argv=None):
         s.phase("cli_r101_from_pkl", p_cli_r101)
 
     shutil.rmtree(tmp_root, ignore_errors=True)
-    for k in st.get("kernels") or []:  # launches on the R-101 and ATSS paths
+    for k in st.get("kernels") or []:  # launches on the later paths
         for path, c in st.get("new_launches", {}).items():
             k[f"{path}_launches"] = c[k["name"]]
+        if k["name"] == "nms_sorted" and "k1_by_k" in st:
+            k["by_k"] = st["k1_by_k"]
     s.record["kernels"] = st.get("kernels")
     s.record["failed"] = s.failed
     out_dir = HERE / "chiprun_out"

@@ -15,7 +15,8 @@ inputs:
     wrapper ``nms_sorted`` timed with CUDA events over back-to-back calls,
     and the raw launch on prepared buffers captured in a CUDA graph (the
     device's time, without the host's); keep masks equal to the plain
-    version's;
+    version's; the same at (2, 1000) and (2, 2000) without labels at IoU
+    0.7, the two-stage detector's proposal NMS;
   * K3 at (4, 800, 1344): the wrapper ``conv0_s8`` on a packed weight, timed
     with CUDA events, at an s1 set from the conv's range and at one that
     needs K3's guard band; bytes equal to the plain version's.
@@ -93,6 +94,33 @@ def measure(tree):
         assert err == 0, f"nms: CUDA error {err}"
     res["k1_graph_ms"] = graph_ms(k1_raw)
     assert torch.equal(keep, want), "K1's raw launch disagrees"
+
+    # K1 at the RPN's K, B = 2, no labels, IoU 0.7 (the two-stage detector's
+    # proposal NMS at its published PRE_NMS_TOP_N_TEST / _TRAIN)
+    for kk in (1000, 2000):
+        xy = torch.rand(2, kk, 2, generator=g) * 600 * (kk / 512) ** 0.5
+        wh = torch.rand(2, kk, 2, generator=g) * 120 + 8
+        bx = torch.cat([xy, xy + wh], -1)
+        vd = torch.rand(2, kk, generator=g) > 0.2
+        order = torch.sort(-torch.where(vd, torch.rand(2, kk, generator=g),
+                                        torch.tensor(-1e10)),
+                           stable=True).indices
+        bx = torch.gather(bx, 1, order[..., None].expand(-1, -1, 4)).to(dev)
+        vd = torch.gather(vd, 1, order).to(dev)
+        w_ = (kk + 63) // 64
+        mk = torch.empty((2, kk, w_), dtype=torch.int64, device=dev)
+        kp = torch.empty((2, kk), dtype=torch.bool, device=dev)
+        nolab = (None, 0) if len(lib.argtypes) == 11 else (None,)
+
+        def raw_k(bx=bx, vd=vd, kk=kk, mk=mk, kp=kp):
+            err = lib(bx.data_ptr(), vd.data_ptr(), *nolab, 2, kk, 0.7, 1,
+                      mk.data_ptr(), kp.data_ptr(),
+                      torch.cuda.current_stream().cuda_stream)
+            assert err == 0, f"nms: CUDA error {err}"
+        res[f"k1_graph_ms_B2_K{kk}"] = graph_ms(raw_k)
+        assert torch.equal(kp, nms_kernel.nms_sorted_plain(bx, vd, None, 0.7))
+        res[f"k1_wrapper_ms_B2_K{kk}"] = cuda_time(
+            lambda: nms_kernel.nms_sorted(bx, vd, None, 0.7), 100)
 
     # ---- K3 ----
     b, h, w = 4, 800, 1344

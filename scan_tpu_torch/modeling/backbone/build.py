@@ -1,11 +1,16 @@
 """Backbone factory (counterpart of ``scan_tpu/modeling/backbone/build.py``).
 
-Ported: ``VGG-16-FPN-RETINANET`` (the SCAN configs' body) and the
+Ported: ``VGG-16-FPN-RETINANET`` (the SCAN configs' body), the
 ``R-50-FPN-RETINANET`` / ``R-101-FPN-RETINANET`` bodies of the EPM R-101
 configs (``build.py:89-110``: C3-C5 into an FPN of
-``RESNETS.BACKBONE_OUT_CHANNELS`` with the ``p6p7`` top block). Other bodies
-raise, ``R-50-FPN`` / ``R-101-FPN`` (the two-stage detector's ``maxpool``
-top block) among them. ``TPU.VGG_WIDTH_DIV``, ``TPU.VGG_STAGE_BLOCKS``,
+``RESNETS.BACKBONE_OUT_CHANNELS`` with the ``p6p7`` top block), and the
+two-stage detector's ``R-50-FPN`` / ``R-101-FPN`` (``build.py:115-135``:
+C2-C5 into that FPN with the ``maxpool`` top block, P2..P6). ``scan_tpu``
+builds the last two with its ResNet's default widths and reads neither
+``RESNETS.RES2_OUT_CHANNELS`` nor ``STEM_OUT_CHANNELS``; the port reads
+them, as for the ``-RETINANET`` bodies, which changes nothing at their
+defaults (256, 64) and lets the tests run narrow (ROADMAP queue C). Other
+bodies raise. ``TPU.VGG_WIDTH_DIV``, ``TPU.VGG_STAGE_BLOCKS``,
 ``TPU.FPN_IN_FEATURES`` and ``TPU.FPN_TOP_BLOCK`` shrink the network
 through the same code, as in ``scan_tpu``, so tests can run small.
 ``quant`` builds the int8 variant (``TPU.INT8_INFERENCE``) and reads the
@@ -53,7 +58,7 @@ def build_vgg_fpn_backbone(cfg, quant=False):
         pallas_stem_int8=bool(tpu.get("PALLAS_STEM_INT8", False)),
     )
     top = cfg.TPU.get("FPN_TOP_BLOCK", "p6p7")
-    if top not in ("p6p7", "none"):
+    if top not in ("p6p7", "maxpool", "none"):
         raise NotImplementedError(f"FPN_TOP_BLOCK {top!r} is not ported yet")
     fpn = FPN(
         in_channels=body.channels,
@@ -68,7 +73,9 @@ def build_vgg_fpn_backbone(cfg, quant=False):
     return BackboneWithFPN(body, fpn)
 
 
-def build_resnet_fpn_p3p7_backbone(cfg, quant=False):
+def build_resnet_fpn_backbone(cfg, quant=False, two_stage=False):
+    """C3-C5 and P6/P7 for the one-stage heads; with ``two_stage`` C2-C5
+    and the ``maxpool`` level (P2..P6), ``scan_tpu``'s R-50/101-FPN."""
     res = cfg.MODEL.RESNETS
     body = ResNet(
         depth=101 if "101" in cfg.MODEL.BACKBONE.CONV_BODY else 50,
@@ -79,9 +86,9 @@ def build_resnet_fpn_p3p7_backbone(cfg, quant=False):
     )
     fpn = FPN(
         in_channels=body.channels,
-        in_features=(1, 2, 3),  # C3, C4, C5
+        in_features=(0, 1, 2, 3) if two_stage else (1, 2, 3),
         out_channels=res.BACKBONE_OUT_CHANNELS,
-        top_block="p6p7",
+        top_block="maxpool" if two_stage else "p6p7",
         use_gn=cfg.MODEL.FPN.USE_GN,
         use_relu=cfg.MODEL.FPN.USE_RELU,
         use_c5_for_p6=cfg.MODEL.RETINANET.USE_C5,
@@ -93,7 +100,9 @@ def build_resnet_fpn_p3p7_backbone(cfg, quant=False):
 def build_backbone(cfg, quant=False):
     body = cfg.MODEL.BACKBONE.CONV_BODY
     if body in ("R-50-FPN-RETINANET", "R-101-FPN-RETINANET"):
-        return build_resnet_fpn_p3p7_backbone(cfg, quant)
+        return build_resnet_fpn_backbone(cfg, quant)
+    if body in ("R-50-FPN", "R-101-FPN"):
+        return build_resnet_fpn_backbone(cfg, quant, two_stage=True)
     if body != "VGG-16-FPN-RETINANET":
         raise KeyError(f"backbone {body!r} is not ported to scan_tpu_torch yet")
     if cfg.MODEL.BACKBONE.VGG_W_BN:

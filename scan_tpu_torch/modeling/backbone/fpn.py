@@ -2,8 +2,11 @@
 ``scan_tpu/modeling/backbone/fpn.py``).
 
 1x1 lateral and 3x3 output convs (kaiming_uniform a=1 init), nearest x2
-top-down upsample, and ``LastLevelP6P7`` (3x3 stride-2 convs, P7 from
-relu(P6)); SCAN configs take P6 from P5 (USE_C5=False). Submodule names
+top-down upsample, and a top block: ``LastLevelP6P7`` (3x3 stride-2 convs,
+P7 from relu(P6); SCAN configs take P6 from P5, USE_C5=False), or the
+two-stage detector's ``maxpool`` (``LastLevelMaxPool``: flax's
+``max_pool(P5, (1, 1), strides=(2, 2))``, a stride-2 subsample of the last
+level, ``fpn.py:79-80``), or none. Submodule names
 follow ``scan_tpu`` (``fpn_inner{i}``, ``fpn_layer{i}``, their ``_gn``, ``p6``, ``p7``).
 With ``quant`` every conv, P6 and P7 included, runs the int8 branch
 (``scan_tpu/modeling/backbone/fpn.py:38-76``).
@@ -73,4 +76,6 @@ class FPN(nn.Module):
             p6 = self.p6(src)
             p7 = self.p7(F.relu(p6))
             results.extend([p6, p7])
+        elif self.top_block == "maxpool":
+            results.append(results[-1][:, ::2, ::2])
         return tuple(results)

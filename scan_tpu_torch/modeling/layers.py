@@ -106,6 +106,17 @@ def calibration(module: nn.Module):
         read_scales(module)
 
 
+def lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator):
+    """flax's default kernel init: a normal truncated to 2 std, rescaled to
+    unit variance, times sqrt(1 / fan_in)."""
+    t = torch.randn(w.shape, generator=gen)
+    out = t.abs() > 2.0
+    while out.any():
+        t[out] = torch.randn(int(out.sum()), generator=gen)
+        out = t.abs() > 2.0
+    w.copy_(t * (math.sqrt(1.0 / fan_in) / 0.87962566103423978))
+
+
 def to_nchw(x):
     """NHWC -> NCHW view (channels_last memory when x is contiguous NHWC)."""
     return x.permute(0, 3, 1, 2)
@@ -119,9 +130,10 @@ def to_nhwc(x):
 class Conv(nn.Conv2d):
     """kxk conv with 'same' padding over NHWC tensors.
 
-    ``kernel_init`` names the init rule (``normal`` with ``std``, ``vgg``,
-    ``kaiming_uniform_a1`` or ``lecun_normal``); ``bias_value`` is the
-    constant bias init.
+    ``kernel_init`` names the init rule (``normal`` with ``std``, ``vgg``
+    (normal, std sqrt(2 / fan_out): flax's ``variance_scaling(2, "fan_out",
+    "normal")``), ``kaiming_uniform_a1`` or ``lecun_normal``, flax's
+    default); ``bias_value`` is the constant bias init.
 
     The fp branch computes in ``compute_dtype`` (see the module
     docstring), casting its input and, when they differ, its weight and
@@ -228,10 +240,56 @@ class Conv(nn.Conv2d):
         elif self.kernel_init == "kaiming_uniform_a1":
             bound = math.sqrt(3.0 / fan_in)
             w.copy_(torch.rand(w.shape, generator=gen) * (2 * bound) - bound)
+        elif self.kernel_init == "lecun_normal":
+            lecun_normal_(w, fan_in, gen)
         else:
             raise KeyError(self.kernel_init)
         if self.bias is not None:
             self.bias.fill_(self.bias_value)
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """flax's ``nn.ConvTranspose`` (``transpose_kernel=False``) over NHWC
+    tensors: a kxk kernel at stride s, ``VALID`` (padding 0) or ``SAME``
+    (padding (k - s) / 2, so the output is s times the input).
+
+    flax runs the kernel unflipped over the dilated input; torch's
+    ``conv_transpose2d`` runs the gradient of a conv, whose kernel is the
+    flipped one. So the weight here, (in, out, k, k), is flax's (k, k, in,
+    out) kernel permuted and flipped in both spatial axes
+    (``utils/jax_weights.py`` converts it so, by this module's type).
+    Compute dtype and float32 masters as ``Conv`` (cast at use). Init:
+    flax's default, lecun_normal over fan_in = k * k * in, zero bias."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=2,
+                 padding="VALID"):
+        if padding == "VALID":
+            pad = 0
+        elif padding == "SAME" and (kernel_size - stride) % 2 == 0:
+            pad = (kernel_size - stride) // 2
+        else:
+            raise ValueError(f"ConvTranspose: padding {padding!r} with k="
+                             f"{kernel_size}, s={stride} is not supported")
+        super().__init__(in_channels, out_channels, kernel_size,
+                         stride=stride, padding=pad)
+        self.compute_dtype = None  # set by the detector
+
+    def forward(self, x):
+        dt = self.compute_dtype or self.weight.dtype
+        w, b = self.weight.to(dt), self.bias.to(dt)
+        x = to_nchw(x.to(dt))
+        if dt != torch.float32 and x.device.type == "cpu":
+            # float32 sums of the bf16 products, rounded back (see Conv)
+            y = F.conv_transpose2d(x.float(), w.float(), b.float(),
+                                   self.stride, self.padding)
+            return to_nhwc(y.to(dt))
+        return to_nhwc(F.conv_transpose2d(x, w, b, self.stride, self.padding))
+
+    @torch.no_grad()
+    def init_parameters(self, gen: torch.Generator):
+        w = self.weight  # (in, out, k, k)
+        lecun_normal_(w, w.shape[0] * w.shape[2] * w.shape[3], gen)
+        self.bias.zero_()
 
 
 class _FloatOutputConv(torch.autograd.Function):
@@ -396,13 +454,7 @@ class Linear(nn.Linear):
         if self.kernel_init == "normal":
             w.copy_(torch.randn(w.shape, generator=gen) * self.std)
         elif self.kernel_init == "lecun_normal":
-            # truncated to 2 std, rescaled to unit variance (flax's rule)
-            t = torch.randn(w.shape, generator=gen)
-            out = t.abs() > 2.0
-            while out.any():
-                t[out] = torch.randn(int(out.sum()), generator=gen)
-                out = t.abs() > 2.0
-            w.copy_(t * (math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978))
+            lecun_normal_(w, w.shape[1], gen)
         else:
             raise KeyError(self.kernel_init)
         self.bias.zero_()

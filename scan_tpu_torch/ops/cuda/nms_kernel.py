@@ -15,7 +15,11 @@ import torch
 from ...structures.boxes import box_iou
 from . import build
 
-MAX_K = 2048  # the scan's "removed" bitset is one warp of 64-bit words
+# The scan's shared memory holds 64 KB of staged mask pieces and the
+# "removed" bitset, 8 bytes a 64 rows: K <= 64 * ((232448 - 65536) // 8 - 1)
+# (``scan_nms_max_k`` in ``csrc/nms.cu``). The (B, K, ceil(K / 64)) bitmask
+# in device memory, 8 B K^2 / 64 bytes, runs out long before.
+MAX_K = 1_335_232
 
 
 def nms_sorted_plain(boxes, valid, labels, iou_threshold: float,
@@ -81,7 +85,8 @@ def nms_sorted(boxes, valid, labels, iou_threshold: float,
     if valid.shape != (b, k) or valid.dtype != torch.bool:
         raise ValueError("nms_sorted: valid must be (B, K) bool")
     if k > MAX_K:
-        raise ValueError(f"nms_sorted: K={k} exceeds {MAX_K}")
+        raise ValueError(f"nms_sorted: K={k} exceeds {MAX_K}, the most the "
+                         "scan's shared memory holds")
     boxes = boxes.contiguous()
     valid = valid.contiguous()
     label_bytes = 0

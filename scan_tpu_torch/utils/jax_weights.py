@@ -9,7 +9,11 @@ so a path maps to a state-dict key by dropping ``params`` and flax's
 wrapper scopes (``Conv_0``, ``GroupNorm_0``) and converting layouts:
 
   * conv kernel (kh, kw, I, O) -> weight (O, I, kh, kw);
-  * dense kernel (I, O) -> weight (O, I);
+  * flax ``ConvTranspose`` kernel (kh, kw, I, O) -> weight (I, O, kh, kw),
+    flipped in both spatial axes (``layers.ConvTranspose`` says why); the
+    rule follows the port module's type, not its name;
+  * dense kernel (I, O) -> weight (O, I), the two-stage box head's ``fc6``
+    included: it reads the pooled map flattened in NHWC order, as flax's;
   * GroupNorm / LayerNorm ``scale`` -> ``weight`` (``Scale``'s stays ``scale``);
   * ``TorchRNN`` weights are in torch layout already;
   * a ResNet body's FrozenBatchNorm ``weight``, ``bias``, ``running_mean``
@@ -30,7 +34,9 @@ those fill in the stem's names.
 Every top-level key is carried over, the training-only condgraph layers
 (``multihead_attn``, ``proto_cls_hidden``, ``proto_cls``, ``gcn_layer1/2``,
 ``edge_project_u/v``) and the ``dis_*`` discriminators of every family
-(``dis_P3``, ``dis_P3_CA``, ``dis_P3_OUT``, ``dis_P3_CON``) included: every
+(``dis_P3``, ``dis_P3_CA``, ``dis_P3_OUT``, ``dis_P3_CON``) included, and
+``FasterRCNN``'s ``backbone``, ``rpn``, ``roi_box``, ``roi_mask`` and
+``roi_keypoint``: every
 parameter of the port must be covered, and every key carried over must
 exist in the port, or ``load_jax_params`` raises. A scale buffer with no scale in the tree (an
 uncalibrated tree, or the cls tower after a ``light``-mode calibration)
@@ -41,7 +47,7 @@ holds no value afterwards, and its conv quantizes dynamically, as
 import numpy as np
 import torch
 
-from ..modeling.layers import NO_SCALE, is_scale_key, read_scales
+from ..modeling.layers import ConvTranspose, NO_SCALE, is_scale_key, read_scales
 
 _WRAPPERS = ("params", "act_scales", "Conv_0", "GroupNorm_0")
 # the port's stem scales <- the naive stem's (scan_tpu's name for each)
@@ -60,8 +66,11 @@ def _flatten(tree, path=()):
         yield path, np.asarray(tree)
 
 
-def convert_params(params: dict) -> dict:
-    """JAX parameter dict -> the port's state dict (torch float32 tensors)."""
+def convert_params(params: dict, transposed=()) -> dict:
+    """JAX parameter dict -> the port's state dict (torch float32 tensors).
+    ``transposed``: the port's module names (``roi_mask.conv5_mask``) whose
+    kernels are flax ``ConvTranspose`` ones."""
+    transposed = set(transposed)
     out = {}
     for top in params:
         for path, arr in _flatten(params[top]):
@@ -69,7 +78,12 @@ def convert_params(params: dict) -> dict:
             leaf = parts[-1]
             owner = parts[-2] if len(parts) > 1 else ""
             if leaf == "kernel":
-                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+                if ".".join([top] + parts[:-1]) in transposed:
+                    arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+                elif arr.ndim == 4:
+                    arr = arr.transpose(3, 2, 0, 1)
+                else:
+                    arr = arr.T
                 leaf = "weight"
             elif leaf == "scale" and not owner.startswith("scale"):
                 leaf = "weight"
@@ -101,7 +115,9 @@ def load_jax_params(detector, params: dict, proto_state=None):
     buffers the tree has no value for are set to hold none."""
     own = {k: v for k, v in detector.state_dict().items()
            if k not in ("prototype", "proto_counter")}
-    sd = _alias_stem_scales(convert_params(params), own)
+    transposed = [n for n, m in detector.named_modules()
+                  if isinstance(m, ConvTranspose)]
+    sd = _alias_stem_scales(convert_params(params, transposed), own)
     missing = sorted(k for k in set(own) - set(sd) if not is_scale_key(k))
     extra = sorted(set(sd) - set(own))
     if missing or extra:

@@ -25,8 +25,12 @@ contracted with it is ``conv_s32`` exactly; with the emulated epilogue it
 gives ``conv0_s8_plain``'s bytes.
 
 K1's chunked greedy scan is emulated in numpy on the plain suppression
-bitmask and must equal ``nms_sorted_plain`` and ``scan_tpu``'s
-``nms_pallas_sorted`` in interpret mode.
+bitmask, both scans: the one for K <= 2048 (a word of "removed" a lane) and
+the pieced one for any K (chunk rows staged in pieces of 64 rows x 64
+words); each must equal ``nms_sorted_plain`` and, up to K = 1000,
+``scan_tpu``'s ``nms_pallas_sorted`` in interpret mode; K = 2049 and 4200
+(33 and 66 words: past the small scan's 32, and two pieces for the first
+chunks) run the pieced scan only.
 
 The kernels themselves run only on the card (``tests/test_torch_kernels.py``).
 """
@@ -342,8 +346,9 @@ def _suppression_bits(boxes, valid, labels, thr):
     return [[int(v) for v in row] for row in packed]
 
 
-def _chunked_scan(mask, valid):
-    """csrc/nms.cu::nms_scan_kernel: lane w holds word w of "removed"."""
+def _small_scan(mask, valid):
+    """csrc/nms.cu::nms_scan_small_kernel (K <= 2048): lane w holds word w
+    of "removed"."""
     k = len(valid)
     words = (k + 63) // 64
     full = (1 << 64) - 1
@@ -366,6 +371,50 @@ def _chunked_scan(mask, valid):
     return keep
 
 
+def _chunked_scan(mask, valid):
+    """csrc/nms.cu::nms_scan_kernel (any K): "removed" is one word a chunk,
+    starting as the invalid rows and the rows past K; chunk c's rows are
+    staged in pieces of 64 words from word c, the first holding the
+    diagonal word the walk reads; every piece's words right of the chunk
+    are ORed into "removed" over the kept rows, by 4 row groups of 16."""
+    k = len(valid)
+    words = (k + 63) // 64
+    full = (1 << 64) - 1
+    removed = []
+    for c in range(words):
+        rows = range(64 * c, min(64 * c + 64, k))
+        vword = sum(1 << (i - 64 * c) for i in rows if valid[i])
+        removed.append(~vword & full)
+    keep = np.zeros(k, bool)
+    for c in range(words):
+        rows = list(range(64 * c, min(64 * c + 64, k)))
+        pieces = (words - c + 63) // 64
+        for p in range(pieces):
+            w0 = c + 64 * p
+            piece = [[mask[i][w] for w in range(w0, min(w0 + 64, words))]
+                     for i in rows]
+            if p == 0:  # warp 0's walk on the diagonal words (column 0)
+                cur = removed[c]
+                for r in range(len(rows)):
+                    if not (cur >> r) & 1:
+                        cur |= piece[r][0]
+                kept = ~cur & full
+                for r, i in enumerate(rows):
+                    keep[i] = (kept >> r) & 1
+            groups = [range(16 * g, 16 * g + 16) for g in range(4)]
+            for j in range(len(piece[0])):  # thread (g, j)
+                w = w0 + j
+                if w <= c:
+                    continue
+                for group in groups:
+                    acc = 0
+                    for r in group:
+                        if r < len(rows) and (kept >> r) & 1:
+                            acc |= piece[r][j]
+                    removed[w] |= acc
+    return keep
+
+
 def _sorted_set(seed, k, n_labels):
     rng = np.random.RandomState(seed)
     xy = rng.uniform(0, min(300, 20 + 2 * k), (k, 2))  # overlaps at any K
@@ -378,20 +427,25 @@ def _sorted_set(seed, k, n_labels):
     return boxes[order], valid[order], labels[order]
 
 
-@pytest.mark.parametrize("k", [1, 63, 64, 65, 512, 1000])
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 512, 1000, 2049, 4200])
 @pytest.mark.parametrize("use_labels", [False, True])
 def test_chunked_scan_equals_plain_and_pallas(k, use_labels):
     boxes, valid, labels = _sorted_set(k + use_labels, k, 4)
     labels = labels if use_labels else None
     tb, tv = torch.from_numpy(boxes), torch.from_numpy(valid)
     tl = None if labels is None else torch.from_numpy(labels)
-    got = _chunked_scan(_suppression_bits(tb, tv, tl, 0.5), valid)
+    bits = _suppression_bits(tb, tv, tl, 0.5)
+    got = _chunked_scan(bits, valid)
     plain = nms_kernel.nms_sorted_plain(
         tb[None], tv[None], None if tl is None else tl[None], 0.5)[0].numpy()
-    pallas = np.asarray(nms_pallas_sorted(
-        jnp.asarray(boxes), jnp.asarray(valid),
-        None if labels is None else jnp.asarray(labels), 0.5, interpret=True))
     np.testing.assert_array_equal(got, plain)
-    np.testing.assert_array_equal(got, pallas)
+    if k <= 2048:  # the scan the kernel runs there
+        np.testing.assert_array_equal(_small_scan(bits, valid), plain)
+    if k <= 1000:  # the interpreted Pallas scan is slow past that
+        pallas = np.asarray(nms_pallas_sorted(
+            jnp.asarray(boxes), jnp.asarray(valid),
+            None if labels is None else jnp.asarray(labels), 0.5,
+            interpret=True))
+        np.testing.assert_array_equal(got, pallas)
     if k >= 64:
         assert 0 < got.sum() < valid.sum(), "the set must suppress something"

@@ -33,7 +33,16 @@ try:
     raised = False
 except RuntimeError:
     raised = True
+from scan_tpu_torch.modeling.generalized_rcnn import FasterRCNN
+cfg = get_default_cfg()
+cfg.MODEL.BACKBONE.CONV_BODY = "R-50-FPN"
+try:
+    FasterRCNN(cfg)
+    rcnn_raised = False
+except RuntimeError:
+    rcnn_raised = True
 print(json.dumps({"modules": names, "bad": bad, "raised": raised,
+                  "rcnn_raised": rcnn_raised,
                   "cuda": torch.cuda.is_available()}))
 """
 
@@ -62,8 +71,11 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
                  "tools.test_net", "tools.train_net_da", "tools.train_net",
                  "tools.remove_solver_states", "modeling.backbone.resnet",
                  "modeling.anchors", "modeling.retinanet",
-                 "modeling.atss.atss", "data.stats", "utils.c2_loading"):
+                 "modeling.atss.atss", "data.stats", "utils.c2_loading",
+                 "modeling.generalized_rcnn", "modeling.rpn_anchor",
+                 "modeling.roi_heads", "ops.roi_align"):
         assert "scan_tpu_torch." + name in res["modules"], name
     assert res["bad"] == []
     if not res["cuda"]:
         assert res["raised"], "build_detector(cfg) must raise without a card"
+        assert res["rcnn_raised"], "FasterRCNN(cfg) must raise without a card"

@@ -14,6 +14,8 @@ cases below cover one image, pooled sizes that are not multiples of the
 tile, odd H and W, and a width below one tile.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -50,8 +52,8 @@ def _sorted_case(seed, b, k, n_labels, invalid_frac, device):
 @pytest.mark.parametrize("label_dtype", [None, torch.int32, torch.int64])
 def test_nms_kernel_matches_plain(cuda_device, k, label_dtype):
     """K1's chunked scan resolves 64 rows at a time: K below, at and past
-    one chunk, and the largest K (32 words). Labels of int32 and int64 go
-    to the kernel uncast."""
+    one chunk, and K = 2048 (32 words, the small scan's largest). Labels of
+    int32 and int64 go to the kernel uncast."""
     boxes, valid, labels = _sorted_case(k, 4, k, 8, 0.25, cuda_device)
     labels = None if label_dtype is None else labels.to(label_dtype)
     before = nms_kernel.nms_sorted.launches
@@ -90,11 +92,38 @@ def test_nms_kernel_degenerate_sets(cuda_device, k, case):
 
 
 @pytest.mark.gpu
-def test_nms_kernel_refuses_k_above_2048(cuda_device):
+@pytest.mark.parametrize("k", [2049, 4096, 6000, 12000])
+@pytest.mark.parametrize("label_dtype", [None, torch.int32, torch.int64])
+def test_nms_kernel_matches_plain_past_2048(cuda_device, k, label_dtype):
+    """K past the earlier design's 2048 (32 words): the scan stages chunk
+    rows in pieces of 64 words, two or more pieces a chunk from K = 4097 on
+    (K = 6000 and 12,000 are the RPN's PRE_NMS_TOP_N_TEST / _TRAIN
+    defaults). Boxes spread so that a fair share is kept."""
+    boxes, valid, labels = _sorted_case(k, 2, k, 8, 0.25, cuda_device)
+    boxes = boxes * (k / 512) ** 0.5  # the same density as at K = 512
+    labels = None if label_dtype is None else labels.to(label_dtype)
+    before = nms_kernel.nms_sorted.launches
+    got = nms_kernel.nms_sorted(boxes, valid, labels, 0.6)
+    torch.cuda.synchronize()
+    assert nms_kernel.nms_sorted.launches == before + 1
+    want = nms_kernel.nms_sorted_plain(boxes, valid, labels, 0.6)
+    assert torch.equal(got, want)
+    assert 0 < int(want.sum()) < int(valid.sum())
+
+
+@pytest.mark.gpu
+def test_nms_kernel_refuses_k_past_its_shared_memory(cuda_device):
+    """The one limit left is the scan's shared memory (the bitset beside the
+    staging buffers); the wrapper's MAX_K is the library's."""
+    assert nms_kernel._lib() is not None
+    lib = nms_kernel.build.load("nms")
+    lib.scan_nms_max_k.restype = ctypes.c_int
+    assert lib.scan_nms_max_k() == nms_kernel.MAX_K
+    k = nms_kernel.MAX_K + 1
     with pytest.raises(ValueError):
         nms_kernel.nms_sorted(
-            torch.zeros(1, 2049, 4, device=cuda_device),
-            torch.ones(1, 2049, dtype=torch.bool, device=cuda_device), None, 0.6)
+            torch.zeros(1, k, 4, device=cuda_device),
+            torch.ones(1, k, dtype=torch.bool, device=cuda_device), None, 0.6)
 
 
 def _stem_data(h, w, seed, device, b=2):

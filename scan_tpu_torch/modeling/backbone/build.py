@@ -9,8 +9,17 @@ C2-C5 into that FPN with the ``maxpool`` top block, P2..P6). ``scan_tpu``
 builds the last two with its ResNet's default widths and reads neither
 ``RESNETS.RES2_OUT_CHANNELS`` nor ``STEM_OUT_CHANNELS``; the port reads
 them, as for the ``-RETINANET`` bodies, which changes nothing at their
-defaults (256, 64) and lets the tests run narrow (ROADMAP queue C). Other
-bodies raise. ``TPU.VGG_WIDTH_DIV``, ``TPU.VGG_STAGE_BLOCKS``,
+defaults (256, 64) and lets the tests run narrow (ROADMAP queue C). And
+the mobile bodies (``build.py:137-180``): ``MNV2-FPN-RETINANET``
+(MobileNetV2's C3-C5 into a 256-wide FPN with ``p6p7``; ``scan_tpu`` reads
+``MODEL.BACKBONE.OUT_CHANNELS``, which the defaults do not define, so 256,
+and ignores ``RESNETS.BACKBONE_OUT_CHANNELS``, which FCOS's public MNV2
+configs set to 128: ROADMAP queue C) and ``FBNet`` / ``FBNET`` (the trunk
+of ``MODEL.FBNET.ARCH`` at ``SCALE_FACTOR`` / ``WIDTH_DIVISOR``, the same
+FPN). ``VGG-16-FPN-RETINANET`` with ``MODEL.BACKBONE.VGG_W_BN`` builds
+VGG16 with BN (``vgg.py``). Each builder is registered in ``BACKBONES``
+under its config name, as in ``scan_tpu``; an unknown body raises
+``KeyError``. ``TPU.VGG_WIDTH_DIV``, ``TPU.VGG_STAGE_BLOCKS``,
 ``TPU.FPN_IN_FEATURES`` and ``TPU.FPN_TOP_BLOCK`` shrink the network
 through the same code, as in ``scan_tpu``, so tests can run small.
 ``quant`` builds the int8 variant (``TPU.INT8_INFERENCE``) and reads the
@@ -24,9 +33,14 @@ that field (``build.py:29-31``), and its ``ResNet`` has none.
 
 from torch import nn
 
+from ...utils.registry import Registry
+from .fbnet import FBNetTrunk
 from .fpn import FPN
+from .mobilenet import MobileNetV2
 from .resnet import ResNet
 from .vgg import VGG16, VGG16_STAGE_BLOCKS
+
+BACKBONES = Registry()
 
 
 class BackboneWithFPN(nn.Module):
@@ -41,6 +55,7 @@ class BackboneWithFPN(nn.Module):
         return self.fpn(self.body(x))
 
 
+@BACKBONES.register("VGG-16-FPN-RETINANET")
 def build_vgg_fpn_backbone(cfg, quant=False):
     tpu = cfg.TPU
     if quant and tpu.get("PALLAS_STEM", False):
@@ -56,6 +71,7 @@ def build_vgg_fpn_backbone(cfg, quant=False):
         pallas_conv0=bool(tpu.get("PALLAS_CONV0", False)),
         pallas_phase_max=bool(tpu.get("PALLAS_PHASE_MAX", False)),
         pallas_stem_int8=bool(tpu.get("PALLAS_STEM_INT8", False)),
+        with_bn=bool(cfg.MODEL.BACKBONE.VGG_W_BN),
     )
     top = cfg.TPU.get("FPN_TOP_BLOCK", "p6p7")
     if top not in ("p6p7", "maxpool", "none"):
@@ -73,6 +89,8 @@ def build_vgg_fpn_backbone(cfg, quant=False):
     return BackboneWithFPN(body, fpn)
 
 
+@BACKBONES.register("R-50-FPN-RETINANET")
+@BACKBONES.register("R-101-FPN-RETINANET")
 def build_resnet_fpn_backbone(cfg, quant=False, two_stage=False):
     """C3-C5 and P6/P7 for the one-stage heads; with ``two_stage`` C2-C5
     and the ``maxpool`` level (P2..P6), ``scan_tpu``'s R-50/101-FPN."""
@@ -97,14 +115,46 @@ def build_resnet_fpn_backbone(cfg, quant=False, two_stage=False):
     return BackboneWithFPN(body, fpn)
 
 
+@BACKBONES.register("R-50-FPN")
+@BACKBONES.register("R-101-FPN")
+def build_resnet_fpn_two_stage_backbone(cfg, quant=False):
+    return build_resnet_fpn_backbone(cfg, quant, two_stage=True)
+
+
+def mobile_fpn(cfg, body, out_channels, quant):
+    """C3-C5 of a mobile body into the FPN with ``p6p7``. The body stays
+    fp under ``quant``, as ``scan_tpu`` passes ``quant`` only to a body
+    with that field (``build.py:29-31``); the FPN runs int8."""
+    return BackboneWithFPN(body, FPN(
+        in_channels=body.channels,
+        in_features=(1, 2, 3),  # C3, C4, C5
+        out_channels=out_channels,
+        top_block="p6p7",
+        use_gn=cfg.MODEL.FPN.USE_GN,
+        use_relu=cfg.MODEL.FPN.USE_RELU,
+        use_c5_for_p6=cfg.MODEL.RETINANET.USE_C5,
+        quant=quant,
+    ))
+
+
+@BACKBONES.register("MNV2-FPN-RETINANET")
+def build_mnv2_fpn_backbone(cfg, quant=False):
+    return mobile_fpn(cfg, MobileNetV2(),
+                      cfg.MODEL.BACKBONE.get("OUT_CHANNELS", 256), quant)
+
+
+@BACKBONES.register("FBNet")
+@BACKBONES.register("FBNET")
+def build_fbnet_fpn_backbone(cfg, quant=False):
+    fb = cfg.MODEL.FBNET
+    body = FBNetTrunk(arch=fb.ARCH or "default",
+                      scale_factor=fb.SCALE_FACTOR,
+                      width_divisor=fb.WIDTH_DIVISOR)
+    return mobile_fpn(cfg, body, 256, quant)
+
+
 def build_backbone(cfg, quant=False):
     body = cfg.MODEL.BACKBONE.CONV_BODY
-    if body in ("R-50-FPN-RETINANET", "R-101-FPN-RETINANET"):
-        return build_resnet_fpn_backbone(cfg, quant)
-    if body in ("R-50-FPN", "R-101-FPN"):
-        return build_resnet_fpn_backbone(cfg, quant, two_stage=True)
-    if body != "VGG-16-FPN-RETINANET":
-        raise KeyError(f"backbone {body!r} is not ported to scan_tpu_torch yet")
-    if cfg.MODEL.BACKBONE.VGG_W_BN:
-        raise NotImplementedError("VGG with BN is not ported yet")
-    return build_vgg_fpn_backbone(cfg, quant)
+    if body not in BACKBONES:
+        raise KeyError(f"Unknown backbone: {body}")
+    return BACKBONES[body](cfg, quant)

@@ -49,6 +49,19 @@ weights (``vgg.py:336-341, 436-437``). ``STEM_CHUNK`` and
 ``STEM_IM2COL_CONV0`` change only how ``scan_tpu`` schedules the work and
 are not ported. Nor is ``PALLAS_STEM`` inside the int8 forward (the fp
 stem kernel there); the backbone factory raises on it.
+
+VGG16 with BN (``with_bn``, ``MODEL.BACKBONE.VGG_W_BN``) is a different
+body, not a fallback of this one: each conv is followed by a per-channel
+GroupNorm ``bn{idx}`` (flax's ``GroupNorm(group_size=1, dtype=...)``: float32
+statistics, output in the compute dtype: ``layers.ChannelGroupNorm``),
+then the ReLU. ``scan_tpu`` never takes its s2d or
+Pallas stem for it (``vgg.py:204``): the norm sits between the fused ops of
+K2, and the JAX package runs no kernel there. So its stage 1 is the plain
+conv -> GN -> ReLU stack on every device, in fp and in int8 (where every
+conv, stage 1's included, is a ``Conv(quant=True)`` with its own scale, and
+no stem scale, K2 or K3-K6 takes part). Stages 1-2 stay frozen, their
+norms included (``scan_tpu``'s solver freezes ``bn0..bn3`` with
+``conv0..conv3``, ``solver/build.py:59-97``).
 """
 
 import torch
@@ -63,8 +76,8 @@ from ...ops.cuda.stem_kernel import STEM_CH, STEM_IN, fused_stem
 from ...ops.cuda.stem_kernel import pack_weights as pack_stem
 from ...ops.quant import (QuantizedActivation, int8_conv, max_pool_2x2,
                           quantize_activation)
-from ..layers import (Conv, add_scales, record_amax, stored_scale, to_nchw,
-                      to_nhwc)
+from ..layers import (ChannelGroupNorm, Conv, add_scales, record_amax,
+                      stored_scale, to_nchw, to_nhwc)
 
 VGG16_STAGE_BLOCKS = (2, 2, 3, 3, 3)
 VGG16_STAGE_CHANNELS = (64, 128, 256, 512, 512)
@@ -79,8 +92,9 @@ class VGG16(nn.Module):
                  quant: bool = False,
                  stem_s8_epilogue: bool = True, stem_pair_conv: bool = True,
                  pallas_conv0: bool = False, pallas_phase_max: bool = False,
-                 pallas_stem_int8: bool = False):
+                 pallas_stem_int8: bool = False, with_bn: bool = False):
         super().__init__()
+        self.with_bn = with_bn
         self.stage_blocks = tuple(stage_blocks)
         self.channels = tuple(max(8, c // width_div) for c in VGG16_STAGE_CHANNELS)
         self.quant = quant
@@ -91,7 +105,7 @@ class VGG16(nn.Module):
         self.pallas_conv0 = pallas_conv0
         self.pallas_phase_max = pallas_phase_max
         self.pallas_stem_int8 = pallas_stem_int8
-        self.stem = self.stage_blocks[0] == 2
+        self.stem = self.stage_blocks[0] == 2 and not with_bn
         self._packs = {}
         idx, cin = 0, STEM_IN
         for blocks, ch in zip(self.stage_blocks, self.channels):
@@ -100,10 +114,14 @@ class VGG16(nn.Module):
                 self.add_module(f"conv{idx}", Conv(
                     cin, ch, 3, kernel_init="vgg", quant=quant,
                     act_scale=not in_stem))
+                if with_bn:
+                    self.add_module(f"bn{idx}", ChannelGroupNorm(ch))
                 cin = ch
                 idx += 1
         for i in range(min(N_FROZEN_CONVS, idx)):
             getattr(self, f"conv{i}").requires_grad_(False)
+            if with_bn:
+                getattr(self, f"bn{i}").requires_grad_(False)
         if quant:
             self.dtype = None  # compute dtype, set by the detector
             self.calibrating = False
@@ -121,7 +139,10 @@ class VGG16(nn.Module):
                 idx += 2
             else:
                 for _ in range(blocks):
-                    x = F.relu(getattr(self, f"conv{idx}")(x))
+                    x = getattr(self, f"conv{idx}")(x)
+                    if self.with_bn:
+                        x = getattr(self, f"bn{idx}")(x)
+                    x = F.relu(x)
                     idx += 1
                 x = to_nhwc(F.max_pool2d(to_nchw(x), 2, 2))
             if isinstance(x, QuantizedActivation):

@@ -152,6 +152,10 @@ class Conv(nn.Conv2d):
     oneDNN's bf16 kernels, whose weight gradient has come back NaN for the
     OUT discriminators' stride-2 convs on 1x1 maps.
 
+    ``groups`` makes a grouped conv (the mobile bodies' depthwise convs,
+    flax's ``feature_group_count``); it takes every fp path above, the
+    float32 result included, and has no int8 branch.
+
     ``quant=True`` runs the int8 branch. Its parameters stay float32 (the
     weights it quantizes are the float32 masters, as in ``scan_tpu``), its
     output is in ``dtype`` (the compute dtype, set by the detector) or the
@@ -162,9 +166,11 @@ class Conv(nn.Conv2d):
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
                  bias=True, kernel_init="normal", std=0.01, bias_value=0.0,
-                 quant=False, act_scale=True, float_output=False):
+                 quant=False, act_scale=True, float_output=False, groups=1):
+        if quant and groups != 1:
+            raise NotImplementedError("an int8 Conv has no grouped branch")
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
-                         padding=kernel_size // 2, bias=bias)
+                         padding=kernel_size // 2, bias=bias, groups=groups)
         self.kernel_init = kernel_init
         self.std = std
         self.bias_value = bias_value
@@ -205,7 +211,7 @@ class Conv(nn.Conv2d):
                 return to_nhwc(self._conv_forward(x, w, b))
             if self.float_output and masters:
                 return to_nhwc(float_output_conv(x, w, b, self.stride,
-                                                 self.padding))
+                                                 self.padding, self.groups))
             if x.device.type == "cpu":
                 # float32 sums of the bf16 products, rounded back
                 y = self._conv_forward(x.float(), w.float(),
@@ -360,6 +366,69 @@ class GroupNorm32(nn.GroupNorm):
     def init_parameters(self, gen: torch.Generator):
         self.weight.fill_(1.0)
         self.bias.zero_()
+
+
+def clip(x, hi):
+    """``jnp.clip(x, 0, hi)`` with its gradient: a maximum and a minimum,
+    which split the gradient at a tie, where ``clamp`` passes all of it (a
+    norm's output is exactly its bias, 0 at init, on a constant channel; a
+    deformable-conv sample on the border). ``clip(x, 6)`` is relu6."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())),
+                         x.new_full((), float(hi)))
+
+
+def channel_norm(x, weight, bias, eps):
+    """Per-channel norm of NHWC ``x`` over H and W as flax computes it:
+    the variance as E[x^2] - E[x]^2 clipped at 0 (``use_fast_variance``),
+    then ``(x - mean) * (rsqrt(var + eps) * weight) + bias``. The int8
+    VGG16-BN needs flax's rounding here: with ``F.group_norm``'s two-pass
+    variance its C1 lay 1.4e-2 of ``scan_tpu``'s apart (an int8 step moved),
+    with this 3e-6."""
+    mean = x.mean((1, 2), keepdim=True)
+    var = ((x * x).mean((1, 2), keepdim=True) - mean * mean).clamp_min(0)
+    return (x - mean) * (torch.rsqrt(var + eps) * weight) + bias
+
+
+class ChannelNorm(nn.GroupNorm):
+    """flax's ``nn.GroupNorm(num_groups=None, group_size=1, epsilon=1e-5)``
+    without ``dtype``, over NHWC tensors: one group per channel, the norm
+    of ``scan_tpu``'s MobileNetV2 and FBNet bodies. flax takes the output
+    dtype from the input and its float32 parameters, so the statistics,
+    the affine and the output are float32 whatever the input's dtype (a
+    bf16 conv's output comes back float32). Its parameters stay float32 in
+    a detector for evaluation too: ``set_compute_dtype`` leaves this class
+    alone, as it leaves ``FrozenBatchNorm``."""
+
+    def __init__(self, channels):
+        super().__init__(channels, channels, eps=1e-5)
+
+    def forward(self, x):
+        return channel_norm(x.float(), self.weight.float(), self.bias.float(),
+                            self.eps)
+
+    @torch.no_grad()
+    def init_parameters(self, gen: torch.Generator):
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+
+class ChannelGroupNorm(GroupNorm32):
+    """flax's ``nn.GroupNorm(num_groups=None, group_size=1, epsilon=1e-5,
+    dtype=...)``, VGG16-BN's ``bn{idx}``: the statistics and affine of
+    ``channel_norm`` in float32, the output in ``compute_dtype``, as
+    ``GroupNorm32`` (which ``set_compute_dtype`` sets and casts). The
+    statistics must be flax's: in the int8 body a quantize follows each
+    norm, and a variance that differs in its last bits moves values across
+    its rounding steps, which the next norm spreads over the channel."""
+
+    def __init__(self, channels):
+        super().__init__(channels, num_groups=channels)
+
+    def forward(self, x):
+        dt = self.compute_dtype or self.weight.dtype
+        y = channel_norm(x.float(), self.weight.float(), self.bias.float(),
+                         self.eps)
+        return y.to(dt)
 
 
 class FrozenBatchNorm(nn.Module):

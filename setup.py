@@ -22,6 +22,7 @@ setup(
     entry_points={
         "console_scripts": [
             "scan-tpu=scan_tpu.cli:main",
+            "scan-tpu-torch=scan_tpu_torch.cli:main",
         ]
     },
 )

@@ -73,7 +73,10 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
                  "modeling.anchors", "modeling.retinanet",
                  "modeling.atss.atss", "data.stats", "utils.c2_loading",
                  "modeling.generalized_rcnn", "modeling.rpn_anchor",
-                 "modeling.roi_heads", "ops.roi_align"):
+                 "modeling.roi_heads", "ops.roi_align", "layers", "demo",
+                 "cli", "tools.demo", "structures.masks", "ops.deform_conv",
+                 "modeling.backbone.mobilenet", "modeling.backbone.fbnet",
+                 "utils.registry", "evaluation.expected_results"):
         assert "scan_tpu_torch." + name in res["modules"], name
     assert res["bad"] == []
     if not res["cuda"]:

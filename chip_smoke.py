@@ -243,10 +243,30 @@ seeded weights; eval paths with the head's cls bias at -2):
  40. ``single_image_path``: a seeded 1024x2048 PNG, ``python -m
      scan_tpu_torch.cli detect --output`` as a process and as a module in
      this process (K2 and K1 once, K1's B = 1 candidate set against the
-     plain NMS), every box inside the frame, the
+     plain NMS), the two runs' detections matched as sets (label, box
+     within 0.5 px, score within 1e-4), every box inside the frame, the
      ``Predictor`` per frame (decode to detections, preprocess, the
      forward alone; float32 and bf16), ``scan_tpu_torch/tools/demo.py``'s
      drawn PNG.
+
+Profiling, data parallelism and the harnesses, after phase 40:
+
+ 41. ``profile_inference_full_width``: ``tools/profile_inference.py`` on
+     C2F, bf16, precision, batch 8 at 800x1344 with ``--trace``: its rows
+     against the ``timing`` phase's forward, ``trace_summary`` of the trace
+     (K2 and K1 in it, the window and the device's busy time);
+ 42. ``train_bf16_trace``: one C2F bf16 DA step, 4 + 4 at 800x1344, in
+     each ``forward_target`` variant under ``utils.profiler.torch_trace``:
+     the device's busy time against the traced window and the untraced
+     step, the kernel count, the top kernels and host ops;
+ 43. ``dp_nccl_world1_full_width``: the DP DA step under NCCL at world 1
+     (a ``file://`` store) against the plain step from the same state,
+     float32, both variants; the all-reduce alone on the flat vector;
+ 44. ``tools_on_card``: ``stability_run`` (300 iterations at 256x512,
+     killed at 150), ``nan_bisect`` from its checkpoint,
+     ``train_net_da --use-tensorboard`` and ``loader_bench``;
+ 45. ``da_efficacy_smoke``: both arms of ``tools/da_efficacy.py`` at 60
+     iterations.
 
 Phase 3 also holds K1 to its plain version at K = 2049, 4096, 6000 and
 12,000 and times it at K = 1000-12,000 (B = 2, the RPN's IoU 0.7).
@@ -3640,13 +3660,20 @@ def main(argv=None):
 
     def p_single_image():
         """40. The single-image path: a seeded 1024x2048 PNG; a C2F
-        checkpoint of the seeded detector with cls_logits' bias at 0 (so
-        there are detections); ``python -m scan_tpu_torch.cli detect`` on
-        it as a process (exit 0, the JSON written, every box inside the
+        checkpoint of the seeded detector with cls_logits' bias drawn per
+        class from a seeded N(0, 0.5) (so there are detections, and the
+        classes' scores do not tie); ``python -m scan_tpu_torch.cli detect``
+        on it as a process (exit 0, the JSON written, every box inside the
         frame) and the same module run in this process with the counters
         zeroed (K2 and K1 launched, K1's keep mask at B = 1 against the
-        plain NMS on the path's own candidates); ``Predictor.detect`` per
-        frame (ms,
+        plain NMS on the path's own candidates). The in-process run takes
+        PyTorch's default TF32 settings for its span (cuDNN's float32
+        convs in TF32, matmuls not), as the fresh process has them; the
+        two runs' detections must then match as sets: as many, and each
+        with one of the same label in the other run whose box lies within
+        0.5 px and whose score within 1e-4 (the same kernels on the same
+        inputs; the bounds leave room for an algorithm cuDNN picks
+        otherwise in another process). ``Predictor.detect`` per frame (ms,
         after 2 warm frames): decode to detections, and the forward alone,
         float32 (the config's) and bf16; ``scan_tpu_torch/tools/demo.py``
         on the same file writes a drawn PNG."""
@@ -3660,7 +3687,8 @@ def main(argv=None):
         write_png(png, frame)
         det = build_detector(c2f(), device=dev, seed=s.seed)
         with torch.no_grad():
-            det.fcos.cls_logits.bias.zero_()
+            bias = det.fcos.cls_logits.bias
+            bias.copy_(0.5 * torch.randn(bias.shape, generator=g).to(bias))
         weights = Checkpointer(str(root / "ckpt"), det).save("model_final")
         del det
         out_json = root / "dets.json"
@@ -3691,6 +3719,11 @@ def main(argv=None):
         zero_counts()
         old_argv = sys.argv
         sys.argv = ["scan_tpu_torch.cli", *argv]
+        tf32 = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        # a fresh process's defaults, as the subprocess above ran
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
         try:
             import runpy
             with capturing_nms() as captured:
@@ -3699,6 +3732,8 @@ def main(argv=None):
             assert e.code in (0, None), e.code
         finally:
             sys.argv = old_argv
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = tf32
         torch.cuda.synchronize()
         c = counts()
         s.say("cli_detect_launches", c)
@@ -3708,14 +3743,22 @@ def main(argv=None):
             cap[0].shape for cap in captured]
         check_nms_sets(captured, "single_image")
         again = check_json()
-        # two processes may pick other cuDNN algorithms, and detections of
-        # near-equal scores trade places: compared as sets, not asserted
-        near = [any(x["label"] == y["label"] and max(
-            abs(a - b) for a, b in zip(x["box"], y["box"])) <= 0.5
-            for y in dets) for x in again]
+
+        def matched(xs, ys):
+            return sum(any(
+                x["label"] == y["label"]
+                and abs(x["score"] - y["score"]) <= 1e-4
+                and max(abs(a - b) for a, b in zip(x["box"], y["box"])) <= 0.5
+                for y in ys) for x in xs)
+        fwd, back = matched(again, dets), matched(dets, again)
+        scores = sorted(d["score"] for d in dets)
+        gap = min((b - a for a, b in zip(scores, scores[1:])), default=None)
         s.say("cli_detect_in_process_vs_process", f"detections "
-              f"{len(again)}/{len(dets)}, {sum(near)} with one of the same "
-              "label within 0.5 px in the other run")
+              f"{len(again)}/{len(dets)}, matched {fwd} and {back} (label, "
+              f"box within 0.5 px, score within 1e-4); distinct scores "
+              f"{len(set(scores))}, least gap {gap}")
+        assert len(again) == len(dets) == fwd == back, (len(again), len(dets),
+                                                        fwd, back)
         st.setdefault("new_launches", {})["single_image"] = c
         from PIL import Image
 
@@ -3754,6 +3797,335 @@ def main(argv=None):
         s.say("tools_demo", f"wrote {written[0]} shape={drawn.shape} "
               f"changed_pixels={int((drawn != frame).any(-1).sum())}")
         assert drawn.shape == frame.shape and (drawn != frame).any()
+
+    # ---- 41-45: profiling, data parallelism, the harnesses ---------------
+    import torch.distributed as dist
+
+    from scan_tpu_torch.engine.dp import make_dp_da_train_step
+    from scan_tpu_torch.parallel import mesh
+    from scan_tpu_torch.tools import (da_efficacy, loader_bench, nan_bisect,
+                                      profile_inference, stability_run,
+                                      trace_summary)
+    from scan_tpu_torch.utils import profiler
+
+    def kernel_names(summary, part):
+        return [k for k in summary["device_kernels"] if part in k["name"]]
+
+    def say_trace(tag, summary, top=8):
+        busy, window = summary["device_busy_ms"], summary["window_ms"]
+        s.say(f"{tag}_trace", f"window_ms={window} device_busy_ms={busy} "
+              f"idle_share={1 - busy / window if window else None} "
+              f"total_self_ms={summary['total_ms']}")
+        s.say(f"{tag}_top_device_kernels", [
+            (k["name"][:90], k["count"], k["total_ms"])
+            for k in summary["device_kernels"][:top]])
+        s.say(f"{tag}_top_host_ops", [
+            (k["name"][:60], k["count"], k["total_ms"])
+            for k in summary["host_ops"][:top]])
+
+    def p_profile_inference():
+        """41. ``tools/profile_inference.py`` on C2F, bf16, precision,
+        batch 8 at 800x1344, 5 calls a prefix after 2 warm-up calls (CUDA
+        events), with ``--trace``: the whole-forward row within 25% of the
+        ``timing`` phase's forward; each prefix no faster than the one
+        before it, less the spread of the ``timing`` phase's own turns (at
+        least 5%); ``trace_summary`` of the trace lists K2's and K1's
+        kernels and ``window_ms > device_busy_ms > 0``. The counters are
+        zeroed before and read after."""
+        free_card()
+        trace_dir = tmp_root / "profile_trace"
+        zero_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rows = profile_inference.main([
+                "--batch", "8", "--iters", "5", "--mode", "precision",
+                "--trace", str(trace_dir), "--seed", str(s.seed)])
+        torch.cuda.synchronize()
+        launched = counts()
+        for line in buf.getvalue().splitlines():
+            print(line)
+        ms = {k: v * 1e3 for k, v in rows.items()}
+        s.say("profile_inference_rows_ms", ms)
+        s.say("profile_inference_launches", launched)
+        st.setdefault("new_launches", {})["profile_inference"] = launched
+        timing = s.record.get("forward_bf16_precision_b8_ms")
+        turns = [t for tag, t in st.get("eval_masters", {}).get("turns", [])
+                 if tag == "cast"]
+        spread = max(abs(turns[0] - turns[-1]) / (sum(turns) / len(turns)),
+                     0.05) if len(turns) > 1 else 0.05
+        s.say("profile_inference_vs_timing",
+              f"full={ms['full(+postprocess)']} timing={timing} "
+              f"spread={spread}")
+        assert timing and abs(ms["full(+postprocess)"] / timing - 1) <= 0.25
+        vals = list(ms.values())
+        assert all(b >= a * (1 - spread) for a, b in zip(vals, vals[1:])), ms
+        assert launched["vgg_stem_fused"] > 0 and launched["nms_sorted"] > 0
+        summary = trace_summary.summarise(     # every op, for the search
+            str(trace_dir / profiler.TRACE_FILE), 1 << 30)
+        say_trace("profile_inference", summary)
+        assert kernel_names(summary, "stem_bf16_kernel"), "no K2 in the trace"
+        assert kernel_names(summary, "nms_"), "no K1 in the trace"
+        assert summary["window_ms"] > summary["device_busy_ms"] > 0
+
+    def p_train_bf16_trace():
+        """42. One C2F bf16 DA step (float32 masters), 4 + 4 at 800x1344,
+        seeded scenes, from the seeded state, in each ``forward_target``
+        variant (three untraced steps of each first, the last two timed with
+        CUDA events, each from the restored state), under
+        ``utils.profiler.torch_trace``: the traced window, the device's busy
+        time (the union of its kernels) and idle share, the busy time over
+        the untraced step's time, the kernel count, the top device kernels
+        and host ops. Asserted: the trace parsed and K2 launched twice in
+        it."""
+        free_card()
+        cfg = c2f("bfloat16")
+        det, _, _, step = train_setup(cfg, dev)
+        init = {k: v.detach().clone() for k, v in det.state_dict().items()}
+        bs, bt = train_batches(4, H, W, s.seed + 10, dev, n_boxes=100, k=16,
+                               scenes=True)
+
+        def restore():
+            with torch.no_grad():
+                for k, v in det.state_dict().items():
+                    v.copy_(init[k])
+            torch.cuda.synchronize()
+
+        for ft in (True, False):
+            untraced = []
+            for rep in range(3):  # rep 0 warms up
+                restore()
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                step(det.proto_state(), bs, bt, forward_target=ft)
+                e1.record()
+                torch.cuda.synchronize()
+                if rep:
+                    untraced.append(e0.elapsed_time(e1))
+            restore()
+            trace_dir = tmp_root / f"train_trace_ft{int(ft)}"
+            with profiler.torch_trace(str(trace_dir)):
+                _, metrics = step(det.proto_state(), bs, bt,
+                                  forward_target=ft)
+            summary = trace_summary.summarise(
+                str(trace_dir / profiler.TRACE_FILE), 1 << 30)
+            say_trace(f"train_bf16_ft{int(ft)}", summary, top=12)
+            n_kernels = sum(k["count"] for k in summary["device_kernels"])
+            k2 = sum(k["count"] for k in kernel_names(summary,
+                                                      "stem_bf16_kernel"))
+            k2_ms = sum(k["total_ms"] for k in kernel_names(
+                summary, "stem_bf16_kernel"))
+            step_ms = sum(untraced) / len(untraced)
+            s.say(f"train_bf16_ft{int(ft)}_trace_counts",
+                  f"K2={k2} ({k2_ms} ms) loss_total="
+                  f"{float(metrics['loss_total'])} kernel_launches="
+                  f"{n_kernels} untraced_step_ms={untraced} device_busy/"
+                  f"untraced_step={summary['device_busy_ms'] / step_ms} "
+                  f"(the profiler's own host work stretches the traced "
+                  f"window; the kernels' busy time over the step's untraced "
+                  f"time bounds the idle share from below)")
+            assert k2 == 2, k2
+        del det, step
+
+    def p_dp_nccl():
+        """43. NCCL at world 1 (``init_process_group`` through a ``file://``
+        store under the run's temporary directory, so no port is opened),
+        the port's DP DA step (``make_dp_da_train_step``) at C2F 4 + 4,
+        800x1344, float32 with TF32 off, from the seeded state, against the
+        plain step (``make_da_train_step``) from the same state, fresh SGD
+        state each, in both ``forward_target`` variants, with cuDNN and
+        PyTorch asked for deterministic algorithms for the phase. Every
+        parameter, the prototype and the metrics of the DP step must equal
+        the plain step's within the distance between two plain steps of the
+        same state (so bit for bit where those agree): at world 1 the
+        all-reduce returns its input and the division by 1 is exact, so
+        only the card's own run-to-run differences (atomics in a backward)
+        remain. K2 twice a step. Step times (CUDA events, each after a warm
+        step) and the all-reduce alone on the flat vector's size. The group
+        is destroyed at the end."""
+        free_card()
+        store = tmp_root / "nccl_store"
+        flags = (torch.backends.cudnn.deterministic,
+                 torch.are_deterministic_algorithms_enabled())
+        mesh.maybe_init_distributed(True, device="cuda",
+                                    init_method=f"file://{store}", rank=0,
+                                    world_size=1, timeout_s=300)
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            cfg = c2f("float32")
+            det, _, _, _ = train_setup(cfg, dev)
+            init = {k: v.detach().clone() for k, v in det.state_dict().items()}
+            bs, bt = train_batches(4, H, W, s.seed + 10, dev, n_boxes=100,
+                                   k=16, scenes=True)
+
+            def run(make, ft, timed=False):
+                with torch.no_grad():
+                    for k, v in det.state_dict().items():
+                        v.copy_(init[k])
+                opt = make_optimizer(cfg, det)
+                step = make(det, opt, make_lr_scheduler(cfg, opt))
+                torch.cuda.synchronize()
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                proto, metrics = step(det.proto_state(), bs, bt,
+                                      forward_target=ft)
+                e1.record()
+                torch.cuda.synchronize()
+                out = dict(state={k: v.detach().clone() for k, v in
+                                  det.state_dict().items()},
+                           metrics={k: v.clone() for k, v in metrics.items()},
+                           ms=e0.elapsed_time(e1),
+                           numel=getattr(step, "reduce", None)
+                           and step.reduce.numel)
+                return out
+
+            def dist_of(a, b):
+                keys = set(a["state"]) | {"m:" + k for k in a["metrics"]}
+                d = {}
+                for k in keys:
+                    x = a["metrics"][k[2:]] if k.startswith("m:") else \
+                        a["state"][k]
+                    y = b["metrics"][k[2:]] if k.startswith("m:") else \
+                        b["state"][k]
+                    d[k] = float((x.double() - y.double()).abs().max())
+                return d
+
+            launches = {}
+            numel = 0
+            for ft in (True, False):
+                plain1 = run(make_da_train_step, ft)
+                plain2 = run(make_da_train_step, ft)
+                zero_counts()
+                dp1 = run(make_dp_da_train_step, ft)
+                torch.cuda.synchronize()
+                c = counts()
+                for k, v in c.items():
+                    launches[k] = launches.get(k, 0) + v
+                numel = dp1["numel"]
+                noise = dist_of(plain1, plain2)
+                got = dist_of(dp1, plain1)
+                bad = [k for k in got if got[k] > noise[k]]
+                exact = sum(v == 0 for v in got.values())
+                s.say(f"dp_world1_ft{int(ft)}",
+                      f"tensors+metrics={len(got)} bit_equal={exact} "
+                      f"plain_vs_plain_max={max(noise.values())} "
+                      f"dp_vs_plain_max={max(got.values())} over_bound="
+                      f"{bad[:5]} K2={c['vgg_stem_fused']} plain_ms="
+                      f"{plain2['ms']} dp_ms={dp1['ms']} (first DP step "
+                      f"of a fresh SGD; plain after a warm one)")
+                assert not bad, bad[:5]
+                assert c["vgg_stem_fused"] == 2, c
+                assert not any(v for k, v in c.items()
+                               if k != "vgg_stem_fused"), c
+            st.setdefault("new_launches", {})["dp_step"] = launches
+            flat = torch.zeros(numel, dtype=torch.float32, device=dev)
+            ar_ms = cuda_time(lambda: dist.all_reduce(flat), 10, 2)
+            s.say("dp_all_reduce_ms", f"{ar_ms} (NCCL, world 1, {numel} "
+                  f"float32 = {numel * 4 / 2 ** 20:.1f} MiB: every gradient, "
+                  "the float metrics, the prototype)")
+            st["dp_all_reduce"] = dict(ms=ar_ms, numel=numel)
+        finally:
+            torch.backends.cudnn.deterministic = flags[0]
+            torch.use_deterministic_algorithms(flags[1])
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+    def p_tools_on_card():
+        """44. The harnesses on the card, cut to fit the run (each cut
+        listed): ``stability_run`` with 300 iterations (not 2,000) on
+        frames of 256x512 (not its 512x1024), 16 + 16 training and 16 val
+        frames (not 32 + 32 + 8), batch 4 + 4, float32, validation every 75
+        iterations and a checkpoint every 50, SIGKILLed once its log shows
+        iteration 150, then resumed: all four asserts (at 60 iterations the
+        validation AP of a random init swings too far between runs for its
+        collapse check; 400 at 512x1024 passed); ``nan_bisect`` from its
+        last checkpoint for 3 iterations (finite);
+        ``train_net_da --use-tensorboard`` for 2 iterations on the same set
+        (events under OUTPUT_DIR/tb where ``tensorboard`` imports, else its
+        one warning); ``loader_bench --n 16 --threads 1 2 4 8`` at
+        1024x2048."""
+        free_card()
+        root = tmp_root / "tools"
+        data, out = root / "data", root / "stab"
+        opts = ["INPUT.MIN_SIZE_RANGE_TRAIN", "(-1,-1)",
+                "INPUT.MIN_SIZE_TRAIN", "(256,)", "INPUT.MAX_SIZE_TRAIN",
+                "512", "INPUT.MIN_SIZE_TEST", "256", "INPUT.MAX_SIZE_TEST",
+                "512", "SOLVER.IMS_PER_BATCH", "4"]
+        t0 = time.time()
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                summary = stability_run.main([
+                    "--iters", "300", "--kill-frac", "0.5", "--val-iter",
+                    "75", "--ckpt-period", "50", "--out", str(out), "--data",
+                    str(data), "--n-train", "16", "--n-val", "16", "--hw",
+                    "256", "512", "--timeout", "400", *opts])
+        except SystemExit as e:  # the tool's own verdict: a failed phase
+            raise AssertionError(f"stability_run: {e}\n{buf.getvalue()}")
+        print(buf.getvalue())
+        s.say("stability_run", f"{summary} wall_s={time.time() - t0:.1f}")
+        last = stability_run.progress(str(out / "run.log"))
+        assert last == 300, last
+        real_dir = DatasetCatalog.DATA_DIR
+        DatasetCatalog.DATA_DIR = str(data)
+        try:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = nan_bisect.main([
+                    "--config-file", str(C2F), "--ckpt",
+                    str(out / "model_0000300.pth"), "--until", "303", *opts,
+                    "OUTPUT_DIR", str(root / "bisect")])
+            s.say("nan_bisect", f"rc={rc} {buf.getvalue().splitlines()[-2:]}")
+            assert rc == 0
+            t0 = time.time()
+            tb_out = root / "tb_run"
+            train_net_da.main([
+                "--config-file", str(C2F), "--use-tensorboard",
+                "MODEL.WEIGHT", "", "SOLVER.MAX_ITER", "2",
+                "SOLVER.VAL_ITER", "2", "OUTPUT_DIR", str(tb_out), *opts])
+        finally:
+            DatasetCatalog.DATA_DIR = real_dir
+        tb = tb_out / "tb"
+        events = sorted(os.listdir(tb)) if tb.exists() else []
+        log = (tb_out / "log.txt").read_text()
+        s.say("train_net_da_tensorboard", f"events={events} warning="
+              f"{'tensorboard unavailable' in log} "
+              f"wall_s={time.time() - t0:.1f}")
+        assert events or "tensorboard unavailable" in log
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rows = loader_bench.main(["--n", "16", "--threads", "1", "2", "4",
+                                      "8"])
+        for r in rows:
+            s.say(f"loader_bench_t{r['threads']}_{r['pass']}", r)
+        assert len(rows) == 8
+
+    def p_da_efficacy_smoke():
+        """45. Both arms of ``tools/da_efficacy.py`` cut to 60 iterations
+        (not 1,500), 16 + 16 training and 8 val images (not 64 + 64 + 32),
+        validation every 30 iterations, at its 320x416 frames, float32:
+        both arms complete, their validations parse, every loss is finite;
+        both AP50s and the margin printed. The margin is the tool's own
+        claim, settled by a full-size run, not by this smoke."""
+        root = tmp_root / "da_efficacy"
+        t0 = time.time()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = da_efficacy.main([
+                "--data-root", str(root / "data"), "--out-root",
+                str(root / "out"), "--iters", "60", "--n-train", "16",
+                "--n-val", "8", "SOLVER.VAL_ITER", "30"])
+        print("\n".join(buf.getvalue().splitlines()[-4:]))
+        s.say("da_efficacy_smoke", f"source_only_AP50="
+              f"{res['source_only']['ap50']} da_AP50={res['da']['ap50']} "
+              f"gain={res['gain']} margin={res['margin']} verdict="
+              f"{res['verdict']} (60 iterations: not the claim's run) "
+              f"wall_s={time.time() - t0:.1f}")
+        for arm in ("source_only", "da"):
+            assert len(res[arm]["validations"]) == 2, res[arm]
+            assert res[arm]["loss_readings"] > 0
 
 
     s.phase("build", p_build)
@@ -3805,6 +4177,11 @@ def main(argv=None):
     s.phase("vgg_bn_full_width", p_vgg_bn)
     s.phase("deform_conv_card_vs_cpu", p_deform)
     s.phase("single_image_path", p_single_image)
+    s.phase("profile_inference_full_width", p_profile_inference)
+    s.phase("train_bf16_trace", p_train_bf16_trace)
+    s.phase("dp_nccl_world1_full_width", p_dp_nccl)
+    s.phase("tools_on_card", p_tools_on_card)
+    s.phase("da_efficacy_smoke", p_da_efficacy_smoke)
     s.phase("disk_tree", p_disk_tree)
     if "disk_tree" in s.failed:
         s.failed.append("entry points from disk (skipped)")

@@ -9,8 +9,16 @@ among them. ``inference`` scores them with ``evaluate_dataset``: the COCO
 protocol of ``evaluation/coco_eval.py`` for a ``COCODataset``, the VOC one of
 ``evaluation/voc_eval.py`` for any other dataset, as ``scan_tpu`` dispatches
 (``scan_tpu/engine/inference.py:121-126``); the trainer's in-loop
-validation calls it. The device mesh and the chained dispatch
-(``TPU.INFER_CHAIN``) of ``scan_tpu`` are not ported.
+validation calls it. Under a process group of more than one rank (data
+parallelism, ``parallel/mesh.py``) every rank iterates the same batches and
+runs its contiguous slice of each; ``inference`` gathers the predictions on
+rank 0, which evaluates them and hands the results to every rank, as
+``scan_tpu`` shards its eval over the mesh (``inference.py:44-56, 129``).
+The chained dispatch (``TPU.INFER_CHAIN``) of ``scan_tpu`` is not ported.
+
+``scan_tpu_torch.engine.inference`` is both this module and, called, the
+``inference`` function, as ``scan_tpu``'s package re-exports the function
+under the module's name.
 """
 
 import logging
@@ -23,6 +31,9 @@ import torch
 from ..data.datasets.coco import COCODataset
 from ..evaluation.coco_eval import evaluate_coco_dataset
 from ..evaluation.voc_eval import evaluate_voc_dataset
+from ..parallel.mesh import (all_gather, broadcast_object, get_rank,
+                             get_world_size, is_main_process, shard_batch)
+from ..utils.callable_module import make_callable
 
 logger = logging.getLogger("scan_tpu_torch.inference")
 
@@ -33,8 +44,10 @@ def compute_predictions(detector, data_loader,
 
     Runs on the detector's device (the card unless it was built for
     another). The next batch is queued before the previous one is copied
-    back, so the host-side collect overlaps device work."""
+    back, so the host-side collect overlaps device work. Under a process
+    group each rank predicts its slice of every batch only."""
     device = next(detector.parameters()).device
+    rank, world = get_rank(), get_world_size()
     predictions: Dict[int, dict] = {}
     t0 = time.time()
     n_img = 0
@@ -59,6 +72,7 @@ def compute_predictions(detector, data_loader,
             n_img += 1
 
     for bi, batch in enumerate(data_loader):
+        batch = shard_batch(batch, rank, world)
         images = torch.as_tensor(np.asarray(batch["images"])).to(
             device, non_blocking=True)
         sizes = torch.as_tensor(np.asarray(batch["sizes"])).to(device)
@@ -89,6 +103,19 @@ def inference(detector, data_loader):
     """Predictions and metrics, fractions in [0, 1]
     (``scan_tpu/engine/inference.py:129-135``). ``data_loader`` iterates
     batches as ``compute_predictions`` takes them and has the ``dataset``
-    they index. Returns (results, predictions)."""
+    they index. Returns (results, predictions): under a process group the
+    results are rank 0's on every rank, the predictions this rank's."""
     predictions = compute_predictions(detector, data_loader, progress_every=0)
-    return evaluate_dataset(data_loader.dataset, predictions), predictions
+    if get_world_size() == 1:
+        return evaluate_dataset(data_loader.dataset, predictions), predictions
+    gathered = all_gather(predictions)
+    results = None
+    if is_main_process():
+        merged = {}
+        for part in gathered:
+            merged.update(part)
+        results = evaluate_dataset(data_loader.dataset, merged)
+    return broadcast_object(results), predictions
+
+
+make_callable(__name__, "inference")

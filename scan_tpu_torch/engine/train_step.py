@@ -20,8 +20,10 @@ master weights, as ``scan_tpu``'s does: the detector is built with
 ``build_detector(..., train=True)``, which keeps every parameter float32,
 so the gradients, the SGD update and its momentum are float32.
 
-Data parallelism (``scan_tpu``'s ``axis_name`` and ``_fused_pmean``) is not
-ported; this is the single-device step.
+Data parallelism (``scan_tpu``'s ``axis_name`` and ``_fused_pmean``) lives in
+``engine/dp.py``: its steps are these with a ``reduce`` hook, which
+averages the gradients, the metrics and the batch prototype over the
+processes between the backward and the optimizer step.
 """
 
 import numpy as np
@@ -55,22 +57,28 @@ def _targets(batch):
     return {k: batch[k] for k in ("boxes", "labels", "mask")}
 
 
-def _apply(optimizer, scheduler, total):
+def _apply(detector, optimizer, scheduler, total, metrics, new_proto,
+           reduce):
+    """One backward, the ``reduce`` hook (data parallelism), one optimizer
+    and scheduler step; the new prototype state goes into the detector's
+    buffers. Returns the (detached) prototype state and metrics, as
+    ``reduce`` left them."""
     optimizer.zero_grad(set_to_none=True)
     total.backward()
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if new_proto is not None:  # None without the condgraph
+        new_proto = ProtoState(new_proto.prototype.detach(), new_proto.counter)
+    if reduce is not None:
+        metrics, new_proto = reduce(optimizer, metrics, new_proto)
     optimizer.step()
     if scheduler is not None:
         scheduler.step()
-
-
-def _finish(detector, new_proto, metrics):
-    if new_proto is not None:  # None without the condgraph
-        new_proto = ProtoState(new_proto.prototype.detach(), new_proto.counter)
+    if new_proto is not None:
         detector.load_proto_state(new_proto)
-    return new_proto, {k: v.detach() for k, v in metrics.items()}
+    return new_proto, metrics
 
 
-def make_da_train_step(detector, optimizer, scheduler=None):
+def make_da_train_step(detector, optimizer, scheduler=None, reduce=None):
     """Returns ``train_step(proto_state, batch_s, batch_t,
     forward_target=False, generator=None) -> (proto_state, metrics)``.
 
@@ -81,7 +89,9 @@ def make_da_train_step(detector, optimizer, scheduler=None):
     one the step is deterministic. The metrics are device scalars named as
     ``scan_tpu``'s: ``*_gs``, ``loss_adv_{P}_{FAMILY}_{ds|dt}``, ``*_gt``,
     ``loss_total``. The new prototype state is returned and also stored in
-    the detector's buffers, which inference reads."""
+    the detector's buffers, which inference reads. ``reduce(optimizer,
+    metrics, proto_state) -> (metrics, proto_state)`` runs between the
+    backward and the optimizer step (``engine/dp.py``)."""
     _check_trainable(detector)
     device = next(detector.parameters()).device
 
@@ -118,13 +128,14 @@ def make_da_train_step(detector, optimizer, scheduler=None):
         total, metrics, new_proto = loss_fn(
             proto_state, _on(batch_s, device), _on(batch_t, device),
             bool(forward_target), generator)
-        _apply(optimizer, scheduler, total)
-        return _finish(detector, new_proto, metrics)
+        return _apply(detector, optimizer, scheduler, total, metrics,
+                      new_proto, reduce)
 
     return train_step
 
 
-def make_source_only_train_step(detector, optimizer, scheduler=None):
+def make_source_only_train_step(detector, optimizer, scheduler=None,
+                                reduce=None):
     """The plain (non-DA) step (reference trainer.py:153-240,
     ``tools/train_net.py``): ``train_step(proto_state, batch,
     generator=None) -> (proto_state, metrics)``."""
@@ -138,7 +149,7 @@ def make_source_only_train_step(detector, optimizer, scheduler=None):
             generator=generator)
         total = sum(losses.values())
         losses["loss_total"] = total
-        _apply(optimizer, scheduler, total)
-        return _finish(detector, new_proto, losses)
+        return _apply(detector, optimizer, scheduler, total, losses,
+                      new_proto, reduce)
 
     return train_step

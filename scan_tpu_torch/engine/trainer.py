@@ -108,9 +108,12 @@ def _step_keys(batch):
 
 def do_train_da(cfg, detector, train_step, proto_state, loader_source,
                 loader_target, loader_val=None, checkpointer=None,
-                start_iter: int = 0, initial_ap50: Optional[float] = None):
+                start_iter: int = 0, initial_ap50: Optional[float] = None,
+                tb_logger=None):
     """The DA loop (``trainer.py:100-211``). Returns (proto_state,
-    best_metric)."""
+    best_metric). ``tb_logger`` (``utils/tensorboard.py``) takes the
+    metrics of each logging window and each validation's score, as
+    ``scan_tpu``'s does (``trainer.py:114, 174-175, 195-196``)."""
     device = next(detector.parameters()).device
     meters = MetricLogger()
     max_iter = cfg.SOLVER.MAX_ITER
@@ -148,6 +151,8 @@ def do_train_da(cfg, detector, train_step, proto_state, loader_source,
                           data=data_time_acc / window, **host_metrics)
             data_time_acc = 0.0
             window = 0
+            if tb_logger is not None:
+                tb_logger.log_scalars(host_metrics, it)
             eta = datetime.timedelta(
                 seconds=int(meters.time.global_avg * (max_iter - it)))
             logger.info("eta: %s  iter: %d  %s  fwd_tgt: %s", eta, it,
@@ -163,6 +168,8 @@ def do_train_da(cfg, detector, train_step, proto_state, loader_source,
             cur = float(results.get(val_type, results.get("AP50", 0.0)))
             ap50_emp = to_percent_ap(cur)
             logger.info("validation @%d: %s=%.4f", it, val_type, ap50_emp)
+            if tb_logger is not None:
+                tb_logger.log_scalars({f"val/{val_type}": ap50_emp}, it)
             if ap50_emp > best_metric:
                 best_metric = ap50_emp
                 if checkpointer is not None:

@@ -23,3 +23,25 @@ def compute_locations(feature_shapes, strides, device=None) -> list:
         compute_locations_level(h, w, s, device)
         for (h, w), s in zip(feature_shapes, strides)
     ]
+
+
+def level_sizes_from_image(padded_h: int, padded_w: int, strides) -> list:
+    """Static per-level (h, w) given a padded image shape
+    (``scan_tpu/ops/locations.py:38``).
+
+    Strides up to 32 come from exact 2x pools on /32-padded inputs; the
+    P6/P7 levels come from stride-2 3x3 convs (padding 1) which ceil-divide:
+    out = floor((n - 1) / 2) + 1 == ceil(n / 2).
+    """
+    sizes = []
+    h, w = padded_h, padded_w
+    cur = 1
+    for s in strides:
+        while cur < s:
+            if cur < 32:
+                h, w = h // 2, w // 2  # exact pools (input padded to /32)
+            else:
+                h, w = (h + 1) // 2, (w + 1) // 2  # stride-2 conv, ceil
+            cur *= 2
+        sizes.append((h, w))
+    return sizes

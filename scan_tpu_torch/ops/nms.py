@@ -9,11 +9,13 @@ original box order.
 The score sort is a stable sort (``jnp.argsort`` is stable); the greedy core
 over the sorted boxes is ``ops/cuda/nms_kernel.py::nms_sorted``: kernel K1
 for CUDA tensors, its plain version for CPU tensors. Every function takes
-one image (K, ...) or a batch (B, K, ...).
+one image (K, ...) or a batch (B, K, ...). Called, the module runs
+``nms`` (``utils/callable_module.py``).
 """
 
 import torch
 
+from ..utils.callable_module import make_callable
 from .cuda.nms_kernel import nms_sorted
 
 NEG_INF = -1e10
@@ -56,3 +58,6 @@ def nms(boxes, scores, valid, iou_threshold, **kw):
 def ml_nms(boxes, scores, labels, valid, iou_threshold, **kw):
     """Multi-label NMS keep mask (original order)."""
     return nms_keep_mask(boxes, scores, valid, iou_threshold, labels=labels, **kw)
+
+
+make_callable(__name__, "nms")

@@ -1,5 +1,9 @@
 """Box math of the port (counterpart of ``scan_tpu/structures/boxes.py``).
 
+``Boxes`` is ``scan_tpu``'s padded-boxes container (``boxes.py:22-86``) over
+tensors: an (..., N, 4) xyxy tensor with a boolean validity mask, optional
+labels and scores, and the image's (width, height).
+
 Pairwise IoU with the legacy '+1' pixel convention (reference
 ``structures/boxlist_ops.py:78-118`` and ``csrc/cuda/nms.cu:13-21``), the
 clip-to-image of the postprocess, and the two-stage detector's '+1' area
@@ -9,9 +13,70 @@ matches ``scan_tpu``'s term for term, so the suppression matrix built from
 ``box_iou`` equals XLA's bit for bit.
 """
 
+import dataclasses
 import math
+from typing import Optional
 
+import numpy as np
 import torch
+
+
+@dataclasses.dataclass
+class Boxes:
+    """Padded boxes in xyxy pixel coordinates.
+
+    Attributes:
+      boxes:  (..., N, 4) float tensor, xyxy.
+      mask:   (..., N) bool tensor; False entries are padding.
+      labels: optional (..., N) int tensor (1-based class ids, 0 = background).
+      scores: optional (..., N) float tensor.
+      size:   (width, height) of the image the boxes live in.
+    """
+
+    boxes: torch.Tensor
+    mask: torch.Tensor
+    labels: Optional[torch.Tensor] = None
+    scores: Optional[torch.Tensor] = None
+    size: tuple = (0, 0)
+
+    @property
+    def capacity(self) -> int:
+        return self.boxes.shape[-2]
+
+    def num_valid(self) -> torch.Tensor:
+        return self.mask.to(torch.int32).sum(-1, dtype=torch.int32)
+
+    def area(self) -> torch.Tensor:
+        return box_area(self.boxes)
+
+    def clip_to_image(self) -> "Boxes":
+        w, h = self.size
+        b = self.boxes
+        return dataclasses.replace(self, boxes=torch.stack([
+            b[..., 0].clamp(0, w - 1), b[..., 1].clamp(0, h - 1),
+            b[..., 2].clamp(0, w - 1), b[..., 3].clamp(0, h - 1)], -1))
+
+    def remove_small(self, min_size: float) -> "Boxes":
+        """Mask out boxes smaller than min_size (reference boxlist_ops.py:59)."""
+        b = self.boxes
+        keep = ((b[..., 2] - b[..., 0]) >= min_size) & (
+            (b[..., 3] - b[..., 1]) >= min_size)
+        return dataclasses.replace(self, mask=self.mask & keep)
+
+    @staticmethod
+    def from_numpy(boxes: np.ndarray, labels: np.ndarray, capacity: int,
+                   size, device=None) -> "Boxes":
+        """Pad host-side (n, 4) / (n,) arrays to a fixed capacity."""
+        n = min(boxes.shape[0], capacity)
+        out_b = np.zeros((capacity, 4), np.float32)
+        out_l = np.zeros((capacity,), np.int32)
+        out_m = np.zeros((capacity,), bool)
+        out_b[:n] = boxes[:n]
+        out_l[:n] = labels[:n]
+        out_m[:n] = True
+        return Boxes(torch.from_numpy(out_b).to(device),
+                     torch.from_numpy(out_m).to(device),
+                     torch.from_numpy(out_l).to(device), None, tuple(size))
 
 
 def box_iou(a: torch.Tensor, b: torch.Tensor, plus_one: bool = True) -> torch.Tensor:

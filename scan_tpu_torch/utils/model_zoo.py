@@ -17,8 +17,11 @@ that URL to its file in the cache, as above (``R-101.pkl``). Such a file is
 a Detectron pickle, which ``utils/c2_loading.py`` reads.
 """
 
+import logging
 import os
 from urllib.parse import urlparse
+
+logger = logging.getLogger("scan_tpu_torch.model_zoo")
 
 
 def default_cache_dir() -> str:
@@ -58,8 +61,16 @@ def resolve_weight_uri(f: str, model_dir: str = None) -> str:
         name = f"{name} ({f})"
     if not f.startswith(("http://", "https://")):
         return f
+    from ..parallel.mesh import is_main_process, synchronize
+
     model_dir = model_dir or default_cache_dir()
     cached = os.path.join(model_dir, url_to_filename(f))
+    if is_main_process():
+        logger.info("%s -> %s (in the cache: %s)", name, cached,
+                    os.path.isfile(cached))
+    # the ranks meet here, as scan_tpu's cache_url does after the main
+    # process's download; then each one that finds no file raises
+    synchronize()
     if not os.path.isfile(cached):
         raise ValueError(
             f"{name} is not in the weight cache and scan_tpu_torch fetches "

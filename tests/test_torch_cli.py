@@ -320,7 +320,11 @@ def test_train_net_da_writes_and_resumes(setup, caplog, monkeypatch,
     state = torch.load(os.path.join(out, "model_final.pth"),
                        weights_only=True)
     assert state["iteration"] == 3 and state["scheduler"]["last_epoch"] == 3
-    with pytest.raises(NotImplementedError, match="--distributed"):
+    # an explicit --distributed outside torch.distributed.run's environment
+    # cannot start its process group, and raises
+    for var in ("RANK", "WORLD_SIZE", "SCAN_TPU_DISTRIBUTED"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="RANK expected"):
         train_net_da.main(["--distributed", *common])
 
 
@@ -372,7 +376,9 @@ def test_train_net_matches_scan_tpu_resumes_and_slims(setup, monkeypatch,
     train_net.main(common + ["SOLVER.MAX_ITER", "3"])
     assert "model_final.pth at iteration 2" in caplog.text
     assert len(steps) == 3
-    with pytest.raises(NotImplementedError, match="--distributed"):
+    for var in ("RANK", "WORLD_SIZE", "SCAN_TPU_DISTRIBUTED"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="RANK expected"):
         train_net.main(["--distributed", *common])
 
     slim = str(setup["root"] / "slim" / "model_slim.pth")

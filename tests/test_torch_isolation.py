@@ -1,5 +1,7 @@
 """The port stands alone: importing every ``scan_tpu_torch`` module loads no
-JAX, flax or ``scan_tpu`` module, and its entry points default to the card.
+JAX, flax or ``scan_tpu`` module and builds no kernel, and its entry points
+default to the card. Every ``scan_tpu_torch/tools/*.py`` is among the
+modules imported.
 
 Runs in a subprocess, so the JAX that other tests import is not in the way.
 """
@@ -21,6 +23,8 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
              or m == "scan_tpu" or m.startswith("scan_tpu."))
+from scan_tpu_torch.ops.cuda import build as kernel_build
+built = sorted(kernel_build._libs)
 
 import torch
 from scan_tpu_torch.config import get_default_cfg
@@ -41,7 +45,8 @@ try:
     rcnn_raised = False
 except RuntimeError:
     rcnn_raised = True
-print(json.dumps({"modules": names, "bad": bad, "raised": raised,
+print(json.dumps({"modules": names, "bad": bad, "built": built,
+                  "raised": raised,
                   "rcnn_raised": rcnn_raised,
                   "cuda": torch.cuda.is_available()}))
 """
@@ -76,9 +81,20 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
                  "modeling.roi_heads", "ops.roi_align", "layers", "demo",
                  "cli", "tools.demo", "structures.masks", "ops.deform_conv",
                  "modeling.backbone.mobilenet", "modeling.backbone.fbnet",
-                 "utils.registry", "evaluation.expected_results"):
+                 "utils.registry", "evaluation.expected_results",
+                 "utils.profiler", "utils.tensorboard", "utils.vis_tools",
+                 "parallel", "parallel.mesh", "engine.dp",
+                 "structures.image_batch", "tools.profile_inference",
+                 "tools.trace_summary", "tools.loader_bench",
+                 "tools.stability_run", "tools.nan_bisect",
+                 "tools.da_efficacy", "tools.webcam"):
         assert "scan_tpu_torch." + name in res["modules"], name
+    tools = os.path.join(REPO, "scan_tpu_torch", "tools")
+    for f in os.listdir(tools):
+        if f.endswith(".py") and f != "__init__.py":
+            assert f"scan_tpu_torch.tools.{f[:-3]}" in res["modules"], f
     assert res["bad"] == []
+    assert res["built"] == []
     if not res["cuda"]:
         assert res["raised"], "build_detector(cfg) must raise without a card"
         assert res["rcnn_raised"], "FasterRCNN(cfg) must raise without a card"

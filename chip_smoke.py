@@ -11,8 +11,11 @@ final ``{"ok": true, ...}`` line:
      print each library's registers and spills (ptxas) and its SASS counts
      of HMMA and IMMA (cuobjdump), and for ``conv0`` also of I2F, F2I, FRND,
      F2F and MUFU (K3's epilogue converts and divides only in its guard
-     band); fail unless ``stem`` has HMMA (K2's bf16 conv1_2) and
-     ``stem_int8`` and ``conv0`` have IMMA (K5's conv1_2, K3's conv);
+     band); then the counts per kernel function of ``stem`` and
+     ``stem_int8``; fail unless ``stem`` has HMMA (K2's bf16 conv1_2),
+     every ``stem_f32_kernel`` HMMA on TF32 operands (K2's float32 3xTF32),
+     every ``stem_int8_kernel`` IMMA and no IDP4A (K5's convs on the
+     tensor cores, no ``__dp4a`` left), and ``conv0`` IMMA (K3's conv);
   2. TF32 off for cuDNN and matmul;
   3. K1 (NMS) against its plain version: sorted synthetic sets, K = 512 and
      1000, B = 4, without labels and with int64 and int32 labels, invalid
@@ -52,8 +55,11 @@ final ``{"ok": true, ...}`` line:
      conv/relu/conv/relu/maxpool as the fp stem's library call (K2
      float32's ratio to it printed), the default int8 chain
      (im2col + ``torch._int_mm``) as the yardstick of K3 and K5, K2's
-     TFLOP/s and K5's TOP/s, K2 bf16 and K5 without their tensor-core
-     conv1_2 (the ``*_probe`` entry points) to split their time, fp and
+     TFLOP/s and K5's TOP/s, K2 float32 beside both its bounds (the CUDA
+     cores' 67 TFLOP/s and the TF32 tensor cores' 495 for its three
+     products a product) and PERF.md's time of its CUDA-core design, K2
+     bf16 and float32 and K5 without their conv1_2 (the ``*_probe`` entry
+     points) to split their time, K5 beside its earlier time, fp and
      int8 forward img/s at bfloat16,
      precision, batch 8 (int8 for each stem variant), and both forwards cut
      at their layers; the fp forward of a detector built for training
@@ -307,11 +313,31 @@ PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_S = 67e12  # CUDA cores
 PEAK_BF16_S = 989e12  # tensor cores, dense
 PEAK_INT8_S = 1979e12  # tensor cores, dense
+PEAK_TF32_S = 495e12  # tensor cores, dense
 PAD1 = ((1, 1), (1, 1))
-# PERF.md's times of the designs that K1 and K3 replaced (NVIDIA H100 80GB
-# HBM3, 700.00 W): K1's wrapper at (4, 512), K3 at (4, 800, 1344)
-EARLIER_MS = {"nms_sorted": 0.0794, "conv0_s8": 0.740}
+# PERF.md's times of the designs that the kernels replaced (NVIDIA H100
+# 80GB HBM3, 700.00 W): K1's wrapper at (4, 512), K3, K2 float32 (CUDA
+# cores) and K5 (``__dp4a`` conv1_1) and its probe at (4, 800, 1344)
+EARLIER_MS = {"nms_sorted": 0.0794, "conv0_s8": 0.740,
+              "vgg_stem_fused_float32": 11.87, "fused_stem_int8": 1.478,
+              "fused_stem_int8_without_conv1_2": 0.989}
 SASS_OPS = ("HMMA", "IMMA", "I2F", "F2I", "FRND", "F2F", "MUFU")
+# per kernel function: the mnemonic patterns counted
+SASS_FN_OPS = {"HMMA": r"\bHMMA\b", "HMMA_TF32": r"\bHMMA\.\S*TF32",
+               "IMMA": r"\bIMMA\b", "IDP4A": r"\bIDP\.?4A"}
+
+
+def sass_functions(text):
+    """``cuobjdump --dump-sass`` text -> {kernel function name: its
+    counts of ``SASS_FN_OPS``}."""
+    out = {}
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        name, body = part.split("\n", 1)
+        out[name.strip()] = {op: len(re.findall(pat, body))
+                             for op, pat in SASS_FN_OPS.items()}
+    return out
+
+
 # int8 stem variants: the TPU.* switches each sets, and the kernel it runs
 INT8_VARIANTS = {
     "default": ({}, None),
@@ -546,6 +572,24 @@ def main(argv=None):
         assert sass["stem"]["HMMA"] > 0, "K2 bf16: no HMMA in stem's SASS"
         assert sass["stem_int8"]["IMMA"] > 0, "K5: no IMMA in stem_int8's SASS"
         assert sass["conv0"]["IMMA"] > 0, "K3: no IMMA in conv0's SASS"
+        # per kernel function (each template instance, the probes too)
+        fns = {}
+        for name, kernel in (("stem", "stem_f32_kernel"),
+                             ("stem", "stem_bf16_kernel"),
+                             ("stem_int8", "stem_int8_kernel")):
+            got = {f: c for f, c in sass_functions(
+                build.dump_sass(name)).items() if kernel in f}
+            assert got, f"no {kernel} in {name}'s SASS"
+            fns.update(got)
+            for f, c in got.items():
+                if kernel == "stem_f32_kernel":
+                    assert c["HMMA_TF32"] > 0, f"K2 float32: no TF32 HMMA in {f}"
+                if kernel == "stem_bf16_kernel":
+                    assert c["HMMA"] > 0, f"K2 bf16: no HMMA in {f}"
+                if kernel == "stem_int8_kernel":
+                    assert c["IMMA"] > 0, f"K5: no IMMA in {f}"
+                    assert c["IDP4A"] == 0, f"K5: IDP4A in {f}"
+        s.say("sass_counts_by_function", fns)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -1004,7 +1048,7 @@ def main(argv=None):
                 + bs * (hh // 2) * (ww // 2) * 64 * osize
             bound = max(nbytes / PEAK_BYTES_S, flops / peak) * 1e3
             times[name] = dict(ms=kms, plain_ms=pms, library_ms=lms,
-                               bound_ms=bound, bound_by="bytes"
+                               bytes=nbytes, bound_ms=bound, bound_by="bytes"
                                if nbytes / PEAK_BYTES_S > flops / peak
                                else "operations",
                                tflops=flops / kms / 1e9)
@@ -1013,17 +1057,35 @@ def main(argv=None):
                   f"kernel_TFLOP/s={flops / kms / 1e9} "
                   f"kernel/library={kms / lms} (B={bs}, {hh}x{ww})")
         bf, f32 = times["bfloat16"], times["float32"]
-        pk = packs[torch.bfloat16]
-        out = torch.empty((bs, hh // 2, ww // 2, 64), dtype=torch.bfloat16,
-                          device=dev)
         xf = x.float().contiguous()
-        bf["without_conv1_2_ms"] = probe_ms(
-            build.load("stem"), "scan_stem_probe", 6,
-            [t.data_ptr() for t in (xf, pk.w0, pk.b0, pk.w1, pk.b1, out)],
-            bs, hh, ww)
-        s.say("time_stem_bfloat16_without_conv1_2",
-              f"ms={bf['without_conv1_2_ms']} "
-              f"share={bf['without_conv1_2_ms'] / bf['ms']}")
+        for tag, symbol, dt in (("bfloat16", "scan_stem_probe", torch.bfloat16),
+                                ("float32", "scan_stem_f32_probe",
+                                 torch.float32)):
+            pk = packs[dt]
+            out = torch.empty((bs, hh // 2, ww // 2, 64), dtype=dt,
+                              device=dev)
+            t = times[tag]
+            t["without_conv1_2_ms"] = probe_ms(
+                build.load("stem"), symbol, 6,
+                [v.data_ptr() for v in (xf, pk.w0, pk.b0, pk.w1, pk.b1, out)],
+                bs, hh, ww)
+            s.say(f"time_stem_{tag}_without_conv1_2",
+                  f"ms={t['without_conv1_2_ms']} "
+                  f"share={t['without_conv1_2_ms'] / t['ms']}")
+        # float32: three TF32 products a product, so the least time for its
+        # float32-accurate work is three times its FLOPs on the TF32 tensor
+        # cores; the CUDA cores' bound is the one the earlier design had
+        f32["cuda_core_bound_ms"] = f32["bound_ms"]
+        f32["bound_ms"] = max(3 * flops / PEAK_TF32_S,
+                              f32["bytes"] / PEAK_BYTES_S) * 1e3
+        s.say("time_stem_float32_bounds",
+              f"ms={f32['ms']} kernel_TFLOP/s={f32['tflops']} (counting "
+              f"{flops / bs / 1e9} GFLOP an image) 3xTF32_bound_ms="
+              f"{f32['bound_ms']} cuda_core_bound_ms="
+              f"{f32['cuda_core_bound_ms']} kernel/library="
+              f"{f32['ms'] / f32['library_ms']} library_ms={f32['library_ms']}"
+              f" earlier design's ms={EARLIER_MS['vgg_stem_fused_float32']}"
+              " (PERF.md)")
         kernels.append(dict(
             name="vgg_stem_fused", route="cuda", source="scan_tpu_torch/csrc/stem.cu",
             replaces="scan_tpu/ops/pallas/stem_kernel.py:215",
@@ -1199,7 +1261,10 @@ def main(argv=None):
                                     soc, out)], bs, hh, ww)
         s.say("time_fused_stem_int8_without_conv1_2",
               f"ms={k5['without_conv1_2_ms']} "
-              f"share={k5['without_conv1_2_ms'] / k5['ms']}")
+              f"share={k5['without_conv1_2_ms'] / k5['ms']}; earlier "
+              f"design's ms={EARLIER_MS['fused_stem_int8']}, without "
+              f"conv1_2 {EARLIER_MS['fused_stem_int8_without_conv1_2']} "
+              "(PERF.md)")
 
         im, sizes = images(8, H, W, s.seed + 2)
         for name, det in st["int8_dets"].items():

@@ -15,6 +15,7 @@
 // eight rows of an ldmatrix (eight neighbouring pixels) hit eight different
 // bank groups:
 //   bf16 (8 chunks a pixel): chunk ^ (pixel & 7)
+//   f32 (16 chunks a pixel, K2's float32 variant): chunk ^ (pixel & 7)
 //   s8   (4 chunks a pixel): chunk ^ ((pixel >> 1) & 3)
 //
 // B is w1, packed once per weight version as [co][tap][ci] so K is
@@ -54,7 +55,7 @@ constexpr int WARP_POOLED = MT * 4;       // pooled outputs a warp stores
 
 static_assert(WARPS * MT * 16 == OR * OC, "warps cover the tile");
 
-// EB: bytes an element (2 for bf16, 1 for s8)
+// EB: bytes an element (4 for f32, 2 for bf16, 1 for s8)
 template <int EB>
 struct Layout {
   static constexpr int PIX_BYTES = CH * EB;          // one conv1_1 pixel
@@ -69,10 +70,14 @@ struct Layout {
 };
 
 // Byte offset of 16-byte chunk c of pixel p in the swizzled conv1_1 tile.
+// A pixel of 8 chunks or more (bf16, f32) xors the chunk's low 3 bits with
+// p & 7; one of 4 (s8) spans half a 128-byte group, so pixels go in pairs.
 template <int EB>
 __device__ __forceinline__ int y_offset(int p, int c) {
   constexpr int PC = Layout<EB>::PIX_CHUNKS;
-  return p * (PC * 16) + ((c ^ ((p / (8 / PC)) & (PC - 1))) << 4);
+  constexpr int PER = PC >= 8 ? 1 : 8 / PC;       // pixels a swizzle step
+  constexpr int MASK = PC >= 8 ? 7 : PC - 1;
+  return p * (PC * 16) + ((c ^ ((p / PER) & MASK)) << 4);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -115,6 +120,56 @@ struct MmaS8 {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
   }
 };
+
+// K2's float32 variant, 3xTF32: m16n8k8 on TF32 operands (the float bits
+// with their low 13 bits zero), f32 sums. Same A, B and C lane layout in
+// bytes as MmaBf16's, so the tile walk above carries over: a k8 step is 32
+// bytes of K.
+struct MmaTf32 {
+  static __device__ __forceinline__ void mma(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  // d = a b, from zero sums (no register to clear)
+  static __device__ __forceinline__ void mma0(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%10, %10, %10, %10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "f"(0.f));
+  }
+};
+
+// x rounded to TF32, to nearest with ties away from zero (cvt.rna): the
+// float's bits with the low 13 zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// The 3xTF32 split of an A fragment: hi = tf32(a), lo = tf32(a - hi) (the
+// difference is exact).
+__device__ __forceinline__ void tf32_split(const uint32_t (&a)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float v = __uint_as_float(a[i]);
+    hi[i] = tf32_rna(v);
+    lo[i] = tf32_rna(__fsub_rn(v, __uint_as_float(hi[i])));
+  }
+}
 
 // Copy the packed w1 ([co][tap][ci], W_ROW bytes a co) into its padded
 // shared layout. Called once per block.

@@ -22,6 +22,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from ..config.paths_catalog import DatasetCatalog
+from ..parallel.mesh import RANK_SLICE, get_rank, get_world_size
 from .datasets.coco import COCODataset
 from .datasets.concat import ConcatDataset
 from .datasets.voc_xml import KittiDataset, PascalVOCDataset, Sim10kDataset
@@ -108,16 +109,30 @@ class DetectionLoader:
     Train batches: images (B,H,W,3), sizes (B,2), boxes (B,G,4),
     labels (B,G), mask (B,G). Eval batches additionally carry 'indices'
     (dataset indices) and 'scales' (w_ratio, h_ratio back to original).
+
+    Data parallelism: with ``world`` > 1 the loader decodes, transforms and
+    yields only slots [rank B / world, (rank + 1) B / world) of each
+    global batch of ``batch_size`` B, marked ``RANK_SLICE`` = (rank, world)
+    so that the data-parallel step and ``engine/inference.py`` do not slice
+    it again. Everything that decides a batch stays global (the index
+    stream and its ``start_iter`` skip, the aspect-ratio groups, the
+    buckets, each slot's transform key), so a rank's batch is byte for byte
+    ``shard_batch(global_batch, rank, world)`` with the mark. ``world`` 1
+    yields the global batch, unmarked.
     """
 
     def __init__(self, dataset, cfg, is_train: bool, batch_size: int,
                  max_iters: Optional[int] = None, seed: int = 1234,
                  bucket_hw=None, num_threads: Optional[int] = None,
-                 start_iter: int = 0):
+                 start_iter: int = 0, rank: int = 0, world: int = 1):
+        if world < 1 or not 0 <= rank < world or batch_size % world:
+            raise ValueError(f"a batch of {batch_size} does not split over "
+                             f"rank {rank} of {world} processes")
         self.dataset = dataset
         self.cfg = cfg
         self.is_train = is_train
         self.batch_size = batch_size
+        self.rank, self.world = rank, world
         self.max_iters = max_iters
         self.seed = seed
         # resume support (reference IterationBasedBatchSampler,
@@ -149,6 +164,7 @@ class DetectionLoader:
         # Decode-once cache for fixed eval sets: eval transforms are
         # deterministic (single MIN_SIZE_TEST, no flip), so the
         # post-transform slot content is a pure function of the index.
+        # Under data parallelism it holds only this rank's images.
         # The first pass pays decode+resize; re-iterations (repeated
         # in-training validations, eval re-runs) copy from the cache.
         # Bounded by TPU.EVAL_CACHE_MB (0 disables); entries stop being
@@ -202,7 +218,8 @@ class DetectionLoader:
     def _make_batch(self, item) -> Dict[str, np.ndarray]:
         iteration, group_id, indices = item
         H, W = self.buckets[group_id]
-        bs = self.batch_size
+        bs = self.batch_size // self.world
+        first = self.rank * bs  # the rank's first slot of the global batch
         img_dtype = np.uint8 if self.device_normalize else np.float32
         images = np.zeros((bs, H, W, 3), img_dtype)
         sizes = np.zeros((bs, 2), np.int32)
@@ -211,7 +228,8 @@ class DetectionLoader:
         mask = np.zeros((bs, self.max_boxes), bool)
         scales = np.ones((bs, 2), np.float32)
         idx_arr = np.full((bs,), -1, np.int64)
-        for slot, i in enumerate(indices):
+        for gslot, i in enumerate(indices[first:first + bs], first):
+            slot = gslot - first
             cached = self._eval_cache.get(i) if self._eval_cache is not None \
                 else None
             if cached is not None:
@@ -225,7 +243,7 @@ class DetectionLoader:
                 # batches under any prefetch-thread interleaving, and exact
                 # across checkpoint resume (start_iter skip)
                 rng = random.Random(
-                    (self.seed * 2654435761 + iteration * 131 + slot)
+                    (self.seed * 2654435761 + iteration * 131 + gslot)
                     % (1 << 63)
                 )
                 # fused native resize(+normalize) straight into the slot
@@ -258,10 +276,13 @@ class DetectionLoader:
                 mask[slot, :n] = True
             scales[slot] = (ow0 / ow, oh0 / oh)
             idx_arr[slot] = i
-        return dict(
+        batch = dict(
             images=images, sizes=sizes, boxes=boxes, labels=labels,
             mask=mask, scales=scales, indices=idx_arr,
         )
+        if self.world > 1:
+            batch[RANK_SLICE] = (self.rank, self.world)
+        return batch
 
     def __iter__(self):
         """Background-threaded prefetching iterator. An error raised while a
@@ -323,12 +344,19 @@ class DetectionLoader:
             stop.set()
 
 
+def _rank_world():
+    """This process's rank and the world size (1 without a process
+    group): each rank's loader decodes only its slots."""
+    return dict(rank=get_rank(), world=get_world_size())
+
+
 def make_data_loader_source(cfg, seed: int = 1234, start_iter: int = 0):
     ds = build_datasets(cfg.DATASETS.TRAIN_SOURCE, is_train=True)
     # each DA stream uses the full IMS_PER_BATCH (reference data/build.py:183)
     return DetectionLoader(
         ds, cfg, True, cfg.SOLVER.IMS_PER_BATCH,
         max_iters=cfg.SOLVER.MAX_ITER, seed=seed, start_iter=start_iter,
+        **_rank_world(),
     )
 
 
@@ -337,6 +365,7 @@ def make_data_loader_target(cfg, seed: int = 1234, start_iter: int = 0):
     return DetectionLoader(
         ds, cfg, True, cfg.SOLVER.IMS_PER_BATCH,
         max_iters=cfg.SOLVER.MAX_ITER, seed=seed + 1, start_iter=start_iter,
+        **_rank_world(),
     )
 
 
@@ -346,6 +375,7 @@ def make_data_loader_train(cfg, seed: int = 1234, start_iter: int = 0):
     return DetectionLoader(
         ds, cfg, True, cfg.SOLVER.IMS_PER_BATCH,
         max_iters=cfg.SOLVER.MAX_ITER, seed=seed, start_iter=start_iter,
+        **_rank_world(),
     )
 
 
@@ -354,7 +384,8 @@ def make_data_loaders_test(cfg):
     test datasets are never concatenated — each is evaluated separately)."""
     datasets = build_datasets(cfg.DATASETS.TEST, is_train=False)
     return [
-        DetectionLoader(ds, cfg, False, cfg.TEST.IMS_PER_BATCH)
+        DetectionLoader(ds, cfg, False, cfg.TEST.IMS_PER_BATCH,
+                        **_rank_world())
         for ds in datasets
     ]
 

@@ -7,7 +7,9 @@ Parity target: the reference wires per-module DDP into its entry point
 practice single-GPU because the prototype buffer never syncs. ``scan_tpu``
 shards one jitted step over a device mesh and pmeans the gradients and the
 batch prototypes. Here each process (one per card, ``torch.distributed.run``)
-takes its contiguous slice of the global batch, runs the forward and the
+takes its contiguous slice of the global batch (the loaders of
+``data/build.py`` decode only that slice and mark the batch
+``RANK_SLICE``, which passes as it is), runs the forward and the
 backward on it, and then **one** all-reduce averages a flat float32
 vector holding every gradient, the float metrics and the batch prototype
 (``scan_tpu``'s ``_fused_pmean``), before the optimizer steps. So the
@@ -25,7 +27,7 @@ import torch
 import torch.distributed as dist
 
 from ..modeling.condgraph.prototype import ProtoState
-from ..parallel.mesh import get_world_size, shard_batch
+from ..parallel.mesh import get_world_size, rank_part
 # the plain steps are looked up on their module at call time, so a wrapper
 # set there (a caller's instrumentation) wraps these steps too
 from . import train_step as plain
@@ -91,9 +93,10 @@ def make_dp_da_train_step(detector, optimizer, scheduler=None, group=None):
     """The DA step over the process group, with the signature of
     ``make_da_train_step``'s: ``train_step(proto_state, batch_s, batch_t,
     forward_target=False, generator=None) -> (proto_state, metrics)``.
-    The batches are the global ones, the same on every rank; each rank
-    takes its slice. The metrics and the prototype returned are the
-    averages over the ranks. ``train_step.reduce`` is the all-reduce hook
+    A batch is either the global one, the same on every rank, of which
+    each rank takes its slice, or one marked ``RANK_SLICE`` that a loader
+    made for this rank alone, taken as it is (``rank_part``). The metrics
+    and the prototype returned are the averages over the ranks. ``train_step.reduce`` is the all-reduce hook
     (its ``numel``, the flat vector's length)."""
     reduce = FusedMean(group)
     step = plain.make_da_train_step(detector, optimizer, scheduler,
@@ -102,8 +105,8 @@ def make_dp_da_train_step(detector, optimizer, scheduler=None, group=None):
 
     def train_step(proto_state, batch_s, batch_t, forward_target=False,
                    generator=None):
-        return step(proto_state, shard_batch(batch_s, rank, world),
-                    shard_batch(batch_t, rank, world),
+        return step(proto_state, rank_part(batch_s, rank, world),
+                    rank_part(batch_t, rank, world),
                     forward_target=forward_target,
                     generator=_rank_generator(generator, rank))
 
@@ -114,15 +117,15 @@ def make_dp_da_train_step(detector, optimizer, scheduler=None, group=None):
 def make_dp_source_only_train_step(detector, optimizer, scheduler=None,
                                    group=None):
     """The source-only step over the process group: ``train_step(
-    proto_state, batch, generator=None) -> (proto_state, metrics)`` on the
-    global batch, each rank on its slice."""
+    proto_state, batch, generator=None) -> (proto_state, metrics)``, each
+    rank on its part of the batch (``rank_part``)."""
     reduce = FusedMean(group)
     step = plain.make_source_only_train_step(detector, optimizer, scheduler,
                                              reduce=reduce)
     rank, world = dist.get_rank(group), dist.get_world_size(group)
 
     def train_step(proto_state, batch, generator=None):
-        return step(proto_state, shard_batch(batch, rank, world),
+        return step(proto_state, rank_part(batch, rank, world),
                     generator=_rank_generator(generator, rank))
 
     train_step.reduce = reduce

@@ -10,10 +10,12 @@ protocol of ``evaluation/coco_eval.py`` for a ``COCODataset``, the VOC one of
 ``evaluation/voc_eval.py`` for any other dataset, as ``scan_tpu`` dispatches
 (``scan_tpu/engine/inference.py:121-126``); the trainer's in-loop
 validation calls it. Under a process group of more than one rank (data
-parallelism, ``parallel/mesh.py``) every rank iterates the same batches and
-runs its contiguous slice of each; ``inference`` gathers the predictions on
-rank 0, which evaluates them and hands the results to every rank, as
-``scan_tpu`` shards its eval over the mesh (``inference.py:44-56, 129``).
+parallelism, ``parallel/mesh.py``) each rank runs its contiguous slice of
+every batch: a global batch is sliced, a batch the loader made for the
+rank alone (marked ``RANK_SLICE``) is taken as it is; ``inference``
+gathers the predictions on rank 0, which evaluates them and hands the
+results to every rank, as ``scan_tpu`` shards its eval over the mesh
+(``inference.py:44-56, 129``).
 The chained dispatch (``TPU.INFER_CHAIN``) of ``scan_tpu`` is not ported.
 
 ``scan_tpu_torch.engine.inference`` is both this module and, called, the
@@ -32,7 +34,7 @@ from ..data.datasets.coco import COCODataset
 from ..evaluation.coco_eval import evaluate_coco_dataset
 from ..evaluation.voc_eval import evaluate_voc_dataset
 from ..parallel.mesh import (all_gather, broadcast_object, get_rank,
-                             get_world_size, is_main_process, shard_batch)
+                             get_world_size, is_main_process, rank_part)
 from ..utils.callable_module import make_callable
 
 logger = logging.getLogger("scan_tpu_torch.inference")
@@ -72,7 +74,7 @@ def compute_predictions(detector, data_loader,
             n_img += 1
 
     for bi, batch in enumerate(data_loader):
-        batch = shard_batch(batch, rank, world)
+        batch = rank_part(batch, rank, world)
         images = torch.as_tensor(np.asarray(batch["images"])).to(
             device, non_blocking=True)
         sizes = torch.as_tensor(np.asarray(batch["sizes"])).to(device)

@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.mesh import RANK_SLICE
 from ..utils.metric_logger import MetricLogger
 
 logger = logging.getLogger("scan_tpu_torch.trainer")
@@ -102,8 +103,13 @@ def _dropout_generator(cfg, device, iteration: int):
     return gen.manual_seed(DROPOUT_SEED * 1_000_003 + iteration)
 
 
-def _step_keys(batch):
-    return {k: batch[k] for k in ("images", "sizes", "boxes", "labels", "mask")}
+def _step_keys(batch, keys=("images", "sizes", "boxes", "labels", "mask")):
+    """The keys a step reads, and the mark of a batch made for one rank
+    (``RANK_SLICE``), which tells the data-parallel step not to slice it."""
+    out = {k: batch[k] for k in keys}
+    if RANK_SLICE in batch:
+        out[RANK_SLICE] = batch[RANK_SLICE]
+    return out
 
 
 def do_train_da(cfg, detector, train_step, proto_state, loader_source,
@@ -131,7 +137,7 @@ def do_train_da(cfg, detector, train_step, proto_state, loader_source,
     for iteration in range(start_iter, max_iter):
         t0 = time.time()
         batch_s = _step_keys(next(src_iter))
-        batch_t = {"images": next(tgt_iter)["images"]}
+        batch_t = _step_keys(next(tgt_iter), ("images",))
         data_time_acc += time.time() - t0
         window += 1
 

@@ -5,9 +5,12 @@ Counterpart of ``scan_tpu/ops/pallas/stem_kernel.py::fused_s2d_stem`` (and
 its oracle ``reference_stem``). ``fused_stem`` launches ``csrc/stem.cu`` for
 CUDA tensors and runs ``reference_stem`` for CPU tensors; it never falls
 back from one to the other. The source note in ``csrc/stem.cu`` says what
-bounds the kernel and what its design does about it: in bfloat16 both
-convs run on the tensor cores (conv1_2 through ``csrc/stem_mma.cuh``), in
-float32 on the CUDA cores.
+bounds the kernel and what its design does about it: both convs run on the
+tensor cores, in bfloat16 with bf16 products (conv1_2 through
+``csrc/stem_mma.cuh``), in float32 as 3xTF32: every product a * b is
+a_lo b_hi + a_hi b_lo + a_hi b_hi over the split x_hi = tf32(x), x_lo =
+tf32(x - x_hi) (``tf32_split``), which keeps float32's 1e-4 tolerance where
+one TF32 product does not (``tests/test_torch_stem_mma.py``).
 
 Layout: x and the output are NHWC, as in ``scan_tpu``; the weights are
 PyTorch's (O, I, kh, kw). ``pack_weights`` lays them out for the kernel; a
@@ -26,6 +29,7 @@ from . import build, refuse_autograd
 STEM_IN = 3
 STEM_CH = 64
 W0_TAPS = 14  # bf16 w0: 9 taps padded with zeros (K 48 read, 112-byte rows)
+W0_K_TF32 = 32  # float32 w0: 27 (tap, ci) pairs padded to K 32, four k8 steps
 
 
 def reference_stem(x, w0, b0, w1, b1, out_dtype=torch.float32):
@@ -43,20 +47,36 @@ def reference_stem(x, w0, b0, w1, b1, out_dtype=torch.float32):
 
 
 class StemPack(NamedTuple):
-    """The weights in the kernel's layouts, for one output dtype.
+    """The weights in the kernel's layouts, for one output dtype; both
+    convs' B operands K contiguous, [co][tap][ci].
 
-    bfloat16 (both convs on the tensor cores, K contiguous for their B
-    operands): w0 (C, 14, 4) [co][tap][ci], taps 9-13 and ci 3 zero; w1
-    (C, 9, C) [co][tap][ci]; b0, b1 (C,) float32 holding bfloat16 values, as
-    the plain version's casts round them.
-    float32: w0 (9, 3, C) [tap][ci][co]; w1 (C, 9, C) [ci][tap][co]; b0, b1
-    (C,).
+    bfloat16: w0 (C, 14, 4), taps 9-13 and ci 3 zero; w1 (C, 9, C); b0, b1
+    (C,) float32 holding bfloat16 values, as the plain version's casts
+    round them.
+    float32 (3xTF32): w0 (2, C, 32), the 27 (tap, ci) pairs then zeros; w1
+    (2, C, 9, C); index 0 of the first axis holds the TF32 hi part, 1 the
+    lo part (``tf32_split``); b0, b1 (C,).
     """
     dtype: torch.dtype
     w0: torch.Tensor
     b0: torch.Tensor
     w1: torch.Tensor
     b1: torch.Tensor
+
+
+def tf32_round(t):
+    """float32 ``t`` rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32``: on the bits, + 2^12 then the
+    low 13 bits cleared (carries into the exponent as the rounding does)."""
+    bits = t.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(t):
+    """(hi, lo) stacked: hi = tf32(t), lo = tf32(t - hi); t - hi is exact,
+    and hi + lo is t within 2^-22 of |t|."""
+    hi = tf32_round(t)
+    return torch.stack([hi, tf32_round(t.to(torch.float32) - hi)])
 
 
 def pack_weights(w0, b0, w1, b1, out_dtype=None) -> StemPack:
@@ -68,14 +88,15 @@ def pack_weights(w0, b0, w1, b1, out_dtype=None) -> StemPack:
     def rounded(t):
         return t.to(dt).to(torch.float32).contiguous()
 
+    w0t = w0.to(dt).permute(0, 2, 3, 1).reshape(cout, 9, w0.shape[1])
+    w1k = w1.to(dt).permute(0, 2, 3, 1).reshape(cout, 9, cin)
     if dt == torch.bfloat16:
         w0k = w0.new_zeros((cout, W0_TAPS, 4), dtype=dt)
-        w0k[:, :9, :w0.shape[1]] = w0.to(dt).permute(0, 2, 3, 1).reshape(
-            cout, 9, w0.shape[1])
-        w1k = w1.to(dt).permute(0, 2, 3, 1).reshape(cout, 9, cin)
+        w0k[:, :9, :w0.shape[1]] = w0t
     else:
-        w0k = w0.to(dt).permute(2, 3, 1, 0).reshape(9, w0.shape[1], cout)
-        w1k = w1.to(dt).permute(1, 2, 3, 0).reshape(cin, 9, cout)
+        w0k = w0.new_zeros((cout, W0_K_TF32), dtype=dt)
+        w0k[:, :w0t[0].numel()] = w0t.reshape(cout, -1)
+        w0k, w1k = tf32_split(w0k), tf32_split(w1k)
     return StemPack(dt, w0k.contiguous(), rounded(b0), w1k.contiguous(),
                     rounded(b1))
 

@@ -7,8 +7,9 @@ jitted step over a 1-D device mesh inside a process. The port runs one
 process per card (``torch.distributed.run``), each with its own device, and
 averages gradients, metrics and batch prototypes in one all-reduce a step
 (``engine/dp.py``). In place of the mesh helpers: ``shard_batch`` takes a
-rank's contiguous slice of the global batch, and ``broadcast_module``
-copies rank 0's parameters and buffers to every rank.
+rank's contiguous slice of the global batch, ``rank_part`` takes a batch
+the loader made for the rank alone (marked ``RANK_SLICE``) as it is, and
+``broadcast_module`` copies rank 0's parameters and buffers to every rank.
 """
 
 import contextlib
@@ -103,6 +104,25 @@ def shard_batch(batch: dict, rank: int, world: int) -> dict:
         per = n // world
         out[k] = v[rank * per:(rank + 1) * per]
     return out
+
+
+# The key that marks a batch a loader made for one rank alone (its value:
+# (rank, world)): the rank's slots of the global batch, already sliced.
+RANK_SLICE = "rank_slice"
+
+
+def rank_part(batch: dict, rank: int, world: int) -> dict:
+    """This rank's part of a batch: a batch marked ``RANK_SLICE`` (the
+    loader made only this rank's slots) as it is, without the mark; an
+    unmarked global batch sliced by ``shard_batch``. A batch marked for
+    another rank or world raises."""
+    mark = batch.get(RANK_SLICE)
+    if mark is None:
+        return shard_batch(batch, rank, world)
+    if tuple(mark) != (rank, world):
+        raise ValueError(f"a batch made for rank {mark[0]} of {mark[1]} "
+                         f"reached rank {rank} of {world}")
+    return {k: v for k, v in batch.items() if k != RANK_SLICE}
 
 
 @torch.no_grad()

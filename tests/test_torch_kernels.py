@@ -370,6 +370,32 @@ def test_stem_int8_kernel_tile_edges(cuda_device, b, h, w):
     assert 0 < int((want != 0).sum()) < want.numel()
 
 
+# K5's requants, at s1 and at s_out, divide only where a product lies in
+# their guard band: round scales (whose products land on half-integers more
+# often), a tiny s1 (most bytes 127), and extreme ones with the bias scaled
+# so the bytes are not all 0: r = 1 / s1 near the smallest normal float,
+# and s above 2**125, where r is subnormal and every value is divided.
+STEM_INT8_SCALES = [(1.0, 0.9, 0.8), (1.0, 7.0, 0.9), (1.0, 2.0 ** -5, 0.5),
+                    (1.0, 1e-4, 0.3), (1.0, 0.31, 7.0),
+                    (1e38, 3e37, 1e36), (1e38, 1e38, 1e34)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bias_mul,s1,s_out", STEM_INT8_SCALES)
+def test_stem_int8_kernel_guard_band_scales(cuda_device, bias_mul, s1,
+                                            s_out):
+    x_q, w0, b0, w1, b1, s0, _, _ = _int8_stem_data(2, 40, 70, 13,
+                                                    cuda_device)
+    b0, b1 = b0 * bias_mul, b1 * bias_mul
+    s = [s0, torch.tensor(s1, device=cuda_device),
+         torch.tensor(s_out, device=cuda_device)]
+    got = stem_int8_kernel.fused_stem_int8(x_q, w0, b0, w1, b1, *s)
+    torch.cuda.synchronize()
+    want = stem_int8_kernel.fused_stem_int8_plain(x_q, w0, b0, w1, b1, *s)
+    assert torch.equal(got, want)
+    assert 0 < int((want != 0).sum()) < want.numel()
+
+
 @pytest.mark.gpu
 def test_stem_int8_kernel_saturates(cuda_device):
     """All-127 input and large weights: conv1_1 and conv1_2 sums reach the

@@ -1,0 +1,16 @@
+"""K2 (the fused VGG16 stage 1, ``stem_f32_kernel``) against its bound in
+float32, in %: the least time of its launches (``_counts.stem_bound_s``
+at one domain's batch and the padded size, against the TF32 tensor cores'
+peak, whatever route the kernel takes) over their device time in the
+traced slice."""
+
+from benchmark.harness.trace import kernel_seconds
+from benchmark.metrics._counts import share, stem_bound_s
+
+
+def read(ctx):
+    secs, n = kernel_seconds(ctx.summary, "stem_f32_kernel")
+    if not n:
+        return None
+    t = ctx.work["traffic"]
+    return share(n * stem_bound_s(t["batch"], *t["pad"], "float32"), secs)

@@ -28,6 +28,7 @@ import torch.distributed as dist
 
 from ..modeling.condgraph.prototype import ProtoState
 from ..parallel.mesh import get_world_size, rank_part
+from ..utils.profiler import span
 # the plain steps are looked up on their module at call time, so a wrapper
 # set there (a caller's instrumentation) wraps these steps too
 from . import train_step as plain
@@ -48,34 +49,36 @@ class FusedMean:
         self.numel = 0
 
     def __call__(self, optimizer, metrics, proto):
-        params = [p for g in optimizer.param_groups for p in g["params"]]
-        names = sorted(k for k, v in metrics.items()
-                       if torch.is_floating_point(v))
-        parts = [p.grad.reshape(-1).float() if p.grad is not None
-                 else p.new_zeros(p.numel(), dtype=torch.float32)
-                 for p in params]
-        parts += [metrics[k].reshape(1).float() for k in names]
-        if proto is not None:
-            parts.append(proto.prototype.reshape(-1).float())
-        flat = torch.cat(parts)
-        self.numel = flat.numel()
-        dist.all_reduce(flat, group=self.group)
-        flat /= dist.get_world_size(self.group)
-        off = 0
-        for p in params:
-            n = p.numel()
-            if p.grad is not None:
-                p.grad.copy_(flat[off:off + n].view_as(p.grad))
-            off += n
-        metrics = dict(metrics)
-        for k in names:
-            metrics[k] = flat[off].to(metrics[k].dtype)
-            off += 1
-        if proto is not None:
-            n = proto.prototype.numel()
-            proto = ProtoState(flat[off:off + n].view_as(proto.prototype).to(
-                proto.prototype.dtype), proto.counter)
-        return metrics, proto
+        with span("allreduce"):
+            params = [p for g in optimizer.param_groups for p in g["params"]]
+            names = sorted(k for k, v in metrics.items()
+                           if torch.is_floating_point(v))
+            parts = [p.grad.reshape(-1).float() if p.grad is not None
+                     else p.new_zeros(p.numel(), dtype=torch.float32)
+                     for p in params]
+            parts += [metrics[k].reshape(1).float() for k in names]
+            if proto is not None:
+                parts.append(proto.prototype.reshape(-1).float())
+            flat = torch.cat(parts)
+            self.numel = flat.numel()
+            dist.all_reduce(flat, group=self.group)
+            flat /= dist.get_world_size(self.group)
+            off = 0
+            for p in params:
+                n = p.numel()
+                if p.grad is not None:
+                    p.grad.copy_(flat[off:off + n].view_as(p.grad))
+                off += n
+            metrics = dict(metrics)
+            for k in names:
+                metrics[k] = flat[off].to(metrics[k].dtype)
+                off += 1
+            if proto is not None:
+                n = proto.prototype.numel()
+                proto = ProtoState(
+                    flat[off:off + n].view_as(proto.prototype).to(
+                        proto.prototype.dtype), proto.counter)
+            return metrics, proto
 
 
 def _rank_generator(generator, rank: int):

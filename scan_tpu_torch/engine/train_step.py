@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..modeling.condgraph.prototype import ProtoState
+from ..utils.profiler import span
 
 
 def _check_trainable(detector):
@@ -64,17 +65,21 @@ def _apply(detector, optimizer, scheduler, total, metrics, new_proto,
     buffers. Returns the (detached) prototype state and metrics, as
     ``reduce`` left them."""
     optimizer.zero_grad(set_to_none=True)
-    total.backward()
+    # the backward's kernels launch from the autograd engine's threads: this
+    # span holds the host's wait for them and the stream's interval
+    with span("backward"):
+        total.backward()
     metrics = {k: v.detach() for k, v in metrics.items()}
     if new_proto is not None:  # None without the condgraph
         new_proto = ProtoState(new_proto.prototype.detach(), new_proto.counter)
     if reduce is not None:
         metrics, new_proto = reduce(optimizer, metrics, new_proto)
-    optimizer.step()
-    if scheduler is not None:
-        scheduler.step()
-    if new_proto is not None:
-        detector.load_proto_state(new_proto)
+    with span("optimizer"):
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+        if new_proto is not None:
+            detector.load_proto_state(new_proto)
     return new_proto, metrics
 
 
@@ -125,11 +130,12 @@ def make_da_train_step(detector, optimizer, scheduler=None, reduce=None):
 
     def train_step(proto_state, batch_s, batch_t, forward_target=False,
                    generator=None):
-        total, metrics, new_proto = loss_fn(
-            proto_state, _on(batch_s, device), _on(batch_t, device),
-            bool(forward_target), generator)
-        return _apply(detector, optimizer, scheduler, total, metrics,
-                      new_proto, reduce)
+        with span("step"):
+            total, metrics, new_proto = loss_fn(
+                proto_state, _on(batch_s, device), _on(batch_t, device),
+                bool(forward_target), generator)
+            return _apply(detector, optimizer, scheduler, total, metrics,
+                          new_proto, reduce)
 
     return train_step
 
@@ -143,13 +149,14 @@ def make_source_only_train_step(detector, optimizer, scheduler=None,
     device = next(detector.parameters()).device
 
     def train_step(proto_state, batch, generator=None):
-        batch = _on(batch, device)
-        losses, _, _, _, new_proto = detector.forward_train(
-            proto_state, batch["images"], _targets(batch), "source",
-            generator=generator)
-        total = sum(losses.values())
-        losses["loss_total"] = total
-        return _apply(detector, optimizer, scheduler, total, losses,
-                      new_proto, reduce)
+        with span("step"):
+            batch = _on(batch, device)
+            losses, _, _, _, new_proto = detector.forward_train(
+                proto_state, batch["images"], _targets(batch), "source",
+                generator=generator)
+            total = sum(losses.values())
+            losses["loss_total"] = total
+            return _apply(detector, optimizer, scheduler, total, losses,
+                          new_proto, reduce)
 
     return train_step

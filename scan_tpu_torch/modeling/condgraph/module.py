@@ -42,6 +42,7 @@ from torch import nn
 from ...ops.dynamic_conv import dynamic_conv
 from ...ops.focal_loss import bce_focal_loss, softmax_focal_loss
 from ...ops.locations import compute_locations
+from ...utils.profiler import span
 from ..layers import (ConvTower, Linear, MultiHeadSelfAttention,
                       promoted_matmul, safe_l2_norm)
 from .prototype import ProtoState, source_prototype_view, update_prototype
@@ -469,11 +470,12 @@ class CondGraph(nn.Module):
         c = self.cfg
         _, act_maps = self._act_maps(
             features, self.get_conded_weight(proto_state.prototype))
-        nodes, node_labels, node_valid, any_nodes = sample_target_nodes(
-            features, act_maps, max_nodes=c.max_nodes,
-            sampling_cfg=c.target_sampling, score_threshold=c.plabel_th,
-            dbscan_eps=c.dbscan_eps, dbscan_thr=c.dbscan_thr,
-            max_candidates_per_level=c.max_target_candidates)
+        with span("gst_sample"):
+            nodes, node_labels, node_valid, any_nodes = sample_target_nodes(
+                features, act_maps, max_nodes=c.max_nodes,
+                sampling_cfg=c.target_sampling, score_threshold=c.plabel_th,
+                dbscan_eps=c.dbscan_eps, dbscan_thr=c.dbscan_thr,
+                max_candidates_per_level=c.max_target_candidates)
         features_out = self.post_process(features, act_maps)
         losses = {}
         if [t for t in c.transfer_cfg if t] or c.self_training:

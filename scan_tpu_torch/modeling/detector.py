@@ -40,6 +40,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.locations import compute_locations
+from ..utils.profiler import span
 from .anchors import atss_level_sizes, grid_anchors
 from .atss.atss import ATSSConfig, ATSSHead, atss_losses, atss_postprocess
 from .backbone.build import build_backbone
@@ -263,34 +264,40 @@ class SCANDetector(nn.Module):
         ``forward_target``. ``generator`` draws the MHA's dropout; without
         one the pass is deterministic. Returns (losses, features, act_maps,
         score_maps, new_proto_state)."""
-        images = self._prep_images(images)
-        feats = list(self.backbone(images))
+        with span("prep"):
+            images = self._prep_images(images)
+        with span("backbone"):
+            feats = list(self.backbone(images))
         losses = {}
         act_maps = None
         new_state = proto_state
         if self.condgraph_on:
             mh_mode = mode if (mode == "source" or forward_target) else "inference"
-            feats, mh_losses, act_maps, new_state = self.middle_head(
-                feats, proto_state, mh_mode,
-                targets if mode == "source" else None, generator=generator)
+            with span("middle_head"):
+                feats, mh_losses, act_maps, new_state = self.middle_head(
+                    feats, proto_state, mh_mode,
+                    targets if mode == "source" else None, generator=generator)
             losses.update(mh_losses)
         score_maps = None
         if mode == "source" or self.need_score_maps:
-            logits, reg, ctr = self._head(feats)
+            with span("fcos"):
+                logits, reg, ctr = self._head(feats)
             score_maps = {"box_cls": logits, "box_regression": reg,
                           "centerness": ctr}
         if mode == "source" and self.atss_on:
-            losses.update(atss_losses(
-                self.atss_cfg, self._anchors(feats), logits, reg, ctr,
-                targets["boxes"], targets["labels"], targets["mask"]))
+            with span("fcos_loss"):
+                losses.update(atss_losses(
+                    self.atss_cfg, self._anchors(feats), logits, reg, ctr,
+                    targets["boxes"], targets["labels"], targets["mask"]))
         elif mode == "source":
-            shapes = [(f.shape[1], f.shape[2]) for f in feats]
-            locations = compute_locations(shapes, self.strides,
-                                          device=images.device)
-            losses.update(fcos_losses(
-                locations, logits, reg, ctr, targets["boxes"],
-                targets["labels"], targets["mask"], gamma=self.loss_gamma,
-                alpha=self.loss_alpha))
+            with span("fcos_loss"):
+                shapes = [(f.shape[1], f.shape[2]) for f in feats]
+                locations = compute_locations(shapes, self.strides,
+                                              device=images.device)
+                losses.update(fcos_losses(
+                    locations, logits, reg, ctr, targets["boxes"],
+                    targets["labels"], targets["mask"], gamma=self.loss_gamma,
+                    alpha=self.loss_alpha))
         return losses, feats, act_maps, score_maps, new_state
 
     def discriminator_losses(self, feats, act_maps, score_maps,
@@ -300,27 +307,28 @@ class SCANDetector(nn.Module):
         ``loss_adv_{P}_{FAMILY}_{ds|dt}``. The center-aware family reads
         the score maps detached; the output-space family reads them with
         their gradient, as ``scan_tpu`` does (no stop_gradient there)."""
-        losses = {}
-        suffix = "ds" if domain == "source" else "dt"
-        for name in self.dis_names:
-            parts = name.split("_")
-            layer = parts[1]
-            family = parts[2] if len(parts) > 2 else "GA"
-            lvl = LAYERS.index(layer)
-            mod = getattr(self, name)
-            if family == "GA":
-                val = mod(feats[lvl], domain_label, domain)
-            elif family == "CA":
-                sm = {k: v[lvl].detach() for k, v in score_maps.items()}
-                val = mod(feats[lvl], domain_label, sm, domain)
-            elif family == "OUT":
-                sm = {k: v[lvl] for k, v in score_maps.items()}
-                val = mod(sm, domain_label, domain)
-            else:  # CON
-                val = mod(feats[lvl], domain_label, act_maps[lvl], domain)
-            losses[f"loss_adv_{layer}_{family}_{suffix}"] = (
-                self.lambdas[family] * val)
-        return losses
+        with span("discriminator"):
+            losses = {}
+            suffix = "ds" if domain == "source" else "dt"
+            for name in self.dis_names:
+                parts = name.split("_")
+                layer = parts[1]
+                family = parts[2] if len(parts) > 2 else "GA"
+                lvl = LAYERS.index(layer)
+                mod = getattr(self, name)
+                if family == "GA":
+                    val = mod(feats[lvl], domain_label, domain)
+                elif family == "CA":
+                    sm = {k: v[lvl].detach() for k, v in score_maps.items()}
+                    val = mod(feats[lvl], domain_label, sm, domain)
+                elif family == "OUT":
+                    sm = {k: v[lvl] for k, v in score_maps.items()}
+                    val = mod(sm, domain_label, domain)
+                else:  # CON
+                    val = mod(feats[lvl], domain_label, act_maps[lvl], domain)
+                losses[f"loss_adv_{layer}_{family}_{suffix}"] = (
+                    self.lambdas[family] * val)
+            return losses
 
     @torch.no_grad()
     def reset_int8_calibration(self):
@@ -365,25 +373,40 @@ class SCANDetector(nn.Module):
         fcos.py TEST.MODE mixing). images (B, H, W, 3) uint8 or normalised
         float, image_sizes (B, 2) int [h, w]. Returns a dict of
         (B, DETECTIONS_PER_IMG) tensors: boxes, scores, labels, valid."""
-        images = self._prep_images(images)
-        feats = list(self.backbone(images))
-        act_maps = None
-        if self.condgraph_on:
-            feats, _, act_maps, _ = self.middle_head(
-                feats, self.proto_state(), "inference")
-        if self.atss_on:
-            logits, reg, ctr = self._head(feats)
-            return atss_postprocess(self.atss_cfg, self.pp_cfg,
-                                    self._anchors(feats), logits, reg, ctr,
-                                    image_sizes.to(images.device))
-        shapes = [(f.shape[1], f.shape[2]) for f in feats]
-        compute_cls = self.test_mode != "light"
-        logits, reg, ctr = self.fcos(feats, compute_cls)
-        cls_maps, apply_sigmoid = mix_cls_maps(self.test_mode, logits, act_maps)
-        pp = dataclasses.replace(self.pp_cfg, apply_sigmoid=apply_sigmoid)
-        locations = compute_locations(shapes, self.strides, device=images.device)
-        return fcos_postprocess(pp, locations, cls_maps, reg, ctr,
-                                image_sizes.to(images.device))
+        with span("inference"):
+            with span("prep"):
+                images = self._prep_images(images)
+            with span("backbone"):
+                feats = list(self.backbone(images))
+            act_maps = None
+            if self.condgraph_on:
+                with span("middle_head"):
+                    feats, _, act_maps, _ = self.middle_head(
+                        feats, self.proto_state(), "inference")
+            if self.atss_on:
+                with span("fcos"):
+                    logits, reg, ctr = self._head(feats)
+                anchors = self._anchors(feats)
+                sizes = image_sizes.to(images.device)
+                with span("postprocess"):
+                    return atss_postprocess(self.atss_cfg, self.pp_cfg,
+                                            anchors, logits, reg, ctr, sizes)
+            shapes = [(f.shape[1], f.shape[2]) for f in feats]
+            compute_cls = self.test_mode != "light"
+            with span("fcos"):
+                logits, reg, ctr = self.fcos(feats, compute_cls)
+            locations = compute_locations(shapes, self.strides,
+                                          device=images.device)
+            sizes = image_sizes.to(images.device)
+            # mix_cls_maps and fcos_postprocess are looked up on this module
+            # at call time, so a caller's wrapper set there wraps them
+            with span("postprocess"):
+                cls_maps, apply_sigmoid = mix_cls_maps(self.test_mode, logits,
+                                                       act_maps)
+                pp = dataclasses.replace(self.pp_cfg,
+                                         apply_sigmoid=apply_sigmoid)
+                return fcos_postprocess(pp, locations, cls_maps, reg, ctr,
+                                        sizes)
 
 
 def build_detector(cfg, device=None, seed: int = 0,

@@ -21,6 +21,7 @@ import torch
 
 from ...ops.nms import nms_keep_mask
 from ...structures.boxes import clip_boxes
+from ...utils.profiler import count, span
 
 NEG_INF = -1e10
 
@@ -131,7 +132,11 @@ def select_detections(cfg: PostProcessConfig, boxes, scores, labels, valid):
     labels = torch.gather(labels, 1, keep_idx)
     valid = torch.gather(valid, 1, keep_idx)
 
-    keep = nms_keep_mask(boxes, scores, valid, cfg.nms_thresh, labels=labels)
+    with span("nms"):
+        keep = nms_keep_mask(boxes, scores, valid, cfg.nms_thresh,
+                             labels=labels)
+    count("nms.candidates", valid)
+    count("nms.kept", keep)
 
     final_rank = torch.where(keep, scores, torch.full_like(scores, NEG_INF))
     n_det = min(cfg.fpn_post_nms_top_n, final_rank.shape[1])

@@ -15,8 +15,9 @@ deploy it. On the card each prefix is timed with CUDA events over
 CPU by the host clock. One JSON line per prefix. ``--trace DIR`` also
 traces one whole forward, after one under the tracer's warm-up
 (``utils/profiler.trace_calls``), into ``DIR/trace.json``
-(``tools/trace_summary.py`` reads it). Trailing ``KEY VALUE`` pairs
-override the config (narrow widths for a CPU run).
+(``tools/trace_summary.py`` reads it), and prints the traced call's
+``utils/profiler.snapshot()``: its spans and counters. Trailing ``KEY
+VALUE`` pairs override the config (narrow widths for a CPU run).
 """
 
 import argparse
@@ -69,7 +70,7 @@ def main(argv=None):
 
     from ..config import get_default_cfg
     from ..modeling.detector import build_detector
-    from ..utils.profiler import TRACE_FILE, trace_calls
+    from ..utils import profiler
 
     cfg = get_default_cfg()
     cfg.merge_from_file(C2F)
@@ -123,9 +124,14 @@ def main(argv=None):
                 row["img_per_sec"] = args.batch / rows[name]
             print(json.dumps(row), flush=True)
         if args.trace:
-            trace_calls(args.trace, full, cuda=cuda)
-            print(json.dumps({"trace": os.path.join(args.trace, TRACE_FILE)}),
-                  flush=True)
+            def traced():  # the snapshot keeps the traced call alone
+                profiler.reset()
+                return full()
+
+            profiler.trace_calls(args.trace, traced, cuda=cuda)
+            print(json.dumps({"trace": os.path.join(args.trace,
+                                                    profiler.TRACE_FILE),
+                              "snapshot": profiler.snapshot()}), flush=True)
     return rows
 
 

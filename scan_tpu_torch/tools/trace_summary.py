@@ -13,14 +13,28 @@ thread. ``window_ms`` is the traced window (the first event's start to the
 last one's end, any thread or stream), and ``device_busy_ms`` the union of
 the kernels' intervals over the device's streams in it; ``1 -
 device_busy_ms / window_ms`` is the device's idle share.
+
+``spans`` reads the program's own ``scan/`` spans (``utils/profiler.span``):
+each device operation (kernel, copy, fill) goes to the innermost ``scan/``
+span open at its launch (matched by ``correlation``) on the launching
+thread, else on any thread (the backward's kernels launch from the autograd
+engine's threads while ``scan/backward`` waits on the caller's). ``layers``
+is the device ms of each innermost span name, ``idle_gaps`` the ten longest
+gaps between device operations, each named by the span of the operation
+after it.
 """
 
+import bisect
 import json
 import sys
 from collections import defaultdict
 
+from ..utils.profiler import SPAN_PREFIX
+
 KERNEL = "kernel"
 HOST_OP = "cpu_op"
+DEVICE_OPS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCHES = ("cuda_runtime", "cuda_driver")
 
 
 def _table(rows, top_n):
@@ -65,6 +79,53 @@ def _union_us(intervals):
     return busy
 
 
+def _innermost(spans, starts, tid, ts):
+    """The name of the innermost span open at ``ts``: on thread ``tid`` if
+    one is, else on any thread; None outside every span. ``spans`` are
+    (start, end, tid, name) sorted by start then by end, the outer first,
+    ``starts`` their starts."""
+    other = None
+    for start, end, span_tid, name in reversed(
+            spans[:bisect.bisect_right(starts, ts)]):
+        if end >= ts:
+            if span_tid == tid:
+                return name
+            other = other or name
+    return other
+
+
+def _spans(events, top_n=10):
+    """The ``spans`` table: device ms by innermost ``scan/`` span and the
+    ``top_n`` longest idle gaps named by span."""
+    spans = sorted(((e["ts"], e["ts"] + e["dur"], e["tid"],
+                     e["name"][len(SPAN_PREFIX):]) for e in events
+                    if e["name"].startswith(SPAN_PREFIX)
+                    and e.get("cat") != "gpu_user_annotation"),
+                   key=lambda s: (s[0], -s[1]))
+    starts = [s[0] for s in spans]
+    launch = {e["args"]["correlation"]: (e["tid"], e["ts"]) for e in events
+              if e.get("cat") in LAUNCHES
+              and "correlation" in (e.get("args") or {})}
+    ops = []
+    for e in events:
+        if e.get("cat") in DEVICE_OPS:
+            where = launch.get((e.get("args") or {}).get("correlation"))
+            name = _innermost(spans, starts, *where) if where else None
+            ops.append((e["ts"], e["dur"], e["name"], name or "unattributed"))
+    layers = defaultdict(float)
+    gaps, end = [], None
+    for ts, dur, op, name in sorted(ops):
+        layers[name] += dur
+        if end is not None and ts > end:
+            gaps.append({"before": name, "op": op[:60],
+                         "gap_ms": (ts - end) / 1e3})
+        end = ts + dur if end is None else max(end, ts + dur)
+    gaps.sort(key=lambda g: -g["gap_ms"])
+    return {"layers": {k: v / 1e3 for k, v in sorted(
+                layers.items(), key=lambda kv: -kv[1])},
+            "idle_gaps": gaps[:top_n]}
+
+
 def summarise(path, top_n=25):
     with open(path) as f:
         trace = json.load(f)
@@ -81,7 +142,8 @@ def summarise(path, top_n=25):
     return {"total_ms": total / 1e3, "window_ms": window / 1e3,
             "device_busy_ms": busy / 1e3,
             "device_kernels": _table(kernel_rows, top_n),
-            "host_ops": _table(host_rows, top_n)}
+            "host_ops": _table(host_rows, top_n),
+            "spans": _spans(events)}
 
 
 def main(argv=None):

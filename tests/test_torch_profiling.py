@@ -108,6 +108,52 @@ def test_trace_summary_self_time_and_device_union(tmp_path):
     assert out["total_ms"] == pytest.approx(0.140 + 0.080)
 
 
+def _launch(ts, corr, tid=1):
+    return dict(_event("cudaLaunchKernel", "cuda_runtime", ts, 2, tid=tid),
+                args={"correlation": corr})
+
+
+def _op(name, cat, ts, dur, corr):
+    return dict(_event(name, cat, ts, dur, tid=7, pid=0),
+                args={"correlation": corr})
+
+
+def test_trace_summary_spans_table(tmp_path):
+    """Device time by the innermost ``scan/`` span open at each launch on
+    the launching thread, else on any thread (tid 2, the autograd engine's,
+    opens none); the idle gaps named by the span of the op after them; the
+    device's copy of a span (``gpu_user_annotation``) is not a host span."""
+    events = [
+        _event("scan/step", "user_annotation", 0, 1000),
+        _event("scan/prep", "user_annotation", 0, 5),
+        _event("scan/backbone", "user_annotation", 10, 190),
+        _event("scan/backward", "user_annotation", 300, 600),
+        _event("scan/step", "gpu_user_annotation", 0, 2000, tid=7, pid=0),
+        _launch(2, 0), _launch(20, 1), _launch(250, 2), _launch(400, 3, tid=2),
+        _launch(950, 4), _launch(1100, 5),
+        _op("k_prep", "kernel", 10, 5, 0),
+        _op("k_bb", "kernel", 100, 50, 1),
+        _op("k_step", "kernel", 260, 40, 2),
+        _op("k_bwd", "kernel", 500, 100, 3),
+        _op("k_step", "kernel", 960, 10, 4),
+        _op("copy", "gpu_memcpy", 1200, 20, 5),
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    spans = trace_summary.summarise(str(path))["spans"]
+    assert spans["layers"] == pytest.approx(
+        {"backward": 0.1, "backbone": 0.05, "step": 0.05,
+         "unattributed": 0.02, "prep": 0.005})
+    assert list(spans["layers"]) == ["backward", "backbone", "step",
+                                     "unattributed", "prep"]
+    assert [(g["before"], g["op"], g["gap_ms"]) for g in spans["idle_gaps"]] \
+        == [("step", "k_step", pytest.approx(0.36)),
+            ("unattributed", "copy", pytest.approx(0.23)),
+            ("backward", "k_bwd", pytest.approx(0.2)),
+            ("step", "k_step", pytest.approx(0.11)),
+            ("backbone", "k_bb", pytest.approx(0.085))]
+
+
 def test_profile_inference_on_cpu_writes_rows_and_trace(tmp_path):
     trace_dir = tmp_path / "trace"
     proc = subprocess.run(
@@ -132,6 +178,12 @@ def test_profile_inference_on_cpu_writes_rows_and_trace(tmp_path):
     totals = [op["total_ms"] for op in host]
     assert totals == sorted(totals, reverse=True)
     assert any("conv" in op["name"] for op in host)
+    snap = [r for r in rows if "trace" in r][0]["snapshot"]
+    calls = {k: v["calls"] for k, v in snap["spans"].items()}
+    assert calls == {"inference": 1, "prep": 1, "backbone": 1,
+                     "middle_head": 1, "fcos": 1, "postprocess": 1, "nms": 1}
+    assert set(snap["counters"]) == {"nms.candidates", "nms.kept"}
+    assert summary["spans"] == {"layers": {}, "idle_gaps": []}  # no card
 
 
 def _scalars(log_dir):

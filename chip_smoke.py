@@ -31,9 +31,10 @@ final ``{"ok": true, ...}`` line:
   6. the fp main path: ``build_detector`` on the C2F config (full VGG16,
      256-channel FPN and heads) at 800x1344, batch 4, seeded weights and a
      seeded uint8 batch, TEST.MODE common/precision/light in float32 and
-     bfloat16. The launch counters are zeroed before and read after; the
-     candidate sets entering NMS in precision mode are held against the
-     plain NMS;
+     bfloat16. The launch counters are zeroed before and read after (the
+     towers' fused GroupNorm, ``group_norm_relu``, counted in each forward
+     and launched in every one); the candidate sets entering NMS in
+     precision mode are held against the plain NMS;
   7. int8 calibration: the C2F config with ``TPU.INT8_INFERENCE`` in
      bfloat16, static activation scales from one seeded batch of 4;
   8. K3-K6 against their plain versions at (4, 800, 1344), on the model's
@@ -46,7 +47,8 @@ final ``{"ok": true, ...}`` line:
      STEM_PAIR_CONV + PALLAS_PHASE_MAX): ``compute_predictions`` in all three
      modes at 800x1344, batch 4, bfloat16; the counters are zeroed before
      each variant, and its kernel must have launched and the other int8
-     kernels (and K2) not;
+     kernels (and K2 and the fused GroupNorm: the int8 towers keep their
+     modules) not;
  11. timing with CUDA events: each kernel and its plain version at the
      checks' shapes; K1 and K3 also as their raw launches captured in a
      CUDA graph (device time without the wrapper's host work), K1 beside
@@ -59,8 +61,11 @@ final ``{"ok": true, ...}`` line:
      cores' 67 TFLOP/s and the TF32 tensor cores' 495 for its three
      products a product) and PERF.md's time of its CUDA-core design, K2
      bf16 and float32 and K5 without their conv1_2 (the ``*_probe`` entry
-     points) to split their time, K5 beside its earlier time, fp and
-     int8 forward img/s at bfloat16,
+     points) to split their time, K5 beside its earlier time, the fused
+     GroupNorm on the tensors of a batch-8 precision forward at each FPN
+     level in bf16 and float32 (``time_group_norm``: against its plain
+     version, then timed beside the modules it replaced and its bound), fp
+     and int8 forward img/s at bfloat16,
      precision, batch 8 (int8 for each stem variant), and both forwards cut
      at their layers; the fp forward of a detector built for training
      (float32 masters cast at use) in turns with the bf16-parameter one;
@@ -77,7 +82,7 @@ final ``{"ok": true, ...}`` line:
      steps with ``forward_target`` True, the first (from the seeded state)
      with target nodes and a transfer loss above 0, then three with False
      (the counters zeroed before and read after: K2 twice a step, no other
-     kernel), then one step of each variant under
+     kernel, the fused GroupNorm neither), then one step of each variant under
      ``torch.cuda.set_sync_debug_mode("error")``; every loss finite, the
      trained parameters moved and the frozen ones not, the prototype
      counter and values advanced; peak device memory;
@@ -85,8 +90,9 @@ final ``{"ok": true, ...}`` line:
      SOLVER.VAL_ITER 2 and a seeded validation set of 4 frames at 800x1344,
      written to disk as PNGs with a COCO json and read by the port's
      ``COCODataset`` and eval loader (COCO AP through
-     ``engine/inference.py::inference``): K1 and K2 launch in each
-     validation, K2 twice a training step; AP50 printed;
+     ``engine/inference.py::inference``): K1, K2 and the fused GroupNorm
+     launch in each validation, K2 twice a training step and the GroupNorm
+     never; AP50 printed;
  15. ``train_timing``: ms per DA step and img/s (source + target) in each
      variant, CUDA events after warm-up, each step from phase 13's seeded
      state (so the True variant's GST has nodes, checked); the step split
@@ -510,7 +516,8 @@ def main(argv=None):
     from scan_tpu_torch.modeling.layers import stored_scale
     from scan_tpu_torch.ops import nms as nms_mod
     from scan_tpu_torch.ops import quant
-    from scan_tpu_torch.ops.cuda import (build, conv0_kernel, nms_kernel,
+    from scan_tpu_torch.ops.cuda import (build, conv0_kernel,
+                                         group_norm_kernel, nms_kernel,
                                          phase_max_kernel, stem_int8_kernel,
                                          stem_kernel)
 
@@ -528,7 +535,9 @@ def main(argv=None):
         "pair_phase_max_s8": phase_max_kernel.pair_phase_max_s8,
     }
     counters = {"nms_sorted": nms_kernel.nms_sorted,
-                "vgg_stem_fused": stem_kernel.fused_stem, **int8_kernels}
+                "vgg_stem_fused": stem_kernel.fused_stem,
+                "group_norm_relu": group_norm_kernel.group_norm_relu,
+                **int8_kernels}
 
     def zero_counts():
         for fn in counters.values():
@@ -770,20 +779,27 @@ def main(argv=None):
                     for dt in ("float32", "bfloat16")}
             torch.cuda.synchronize()
             zero_counts()
+            gn = {}
             for dt, det in dets.items():
                 for mode in ("common", "precision", "light"):
                     det.test_mode = mode
                     st["capture"] = mode == "precision"
+                    n0 = group_norm_kernel.group_norm_relu.launches
                     preds = compute_predictions(det, [batch], progress_every=0)
                     st["capture"] = False
+                    gn[f"{dt}_{mode}"] = \
+                        group_norm_kernel.group_norm_relu.launches - n0
                     s.say(f"main_{dt}_{mode}",
-                          f"detections={check_preds(preds, 4)}")
+                          f"detections={check_preds(preds, 4)} "
+                          f"group_norm_relu={gn[f'{dt}_{mode}']}")
             st["launches"] = counts()
         finally:
             pp_mod.nms_keep_mask = real
         s.say("main_path_launches", st["launches"])
         assert st["launches"]["nms_sorted"] > 0
         assert st["launches"]["vgg_stem_fused"] > 0
+        assert all(v > 0 for v in gn.values()), gn  # every fp eval forward
+        st["gn_by_forward"] = gn
         assert not any(st["launches"][k] for k in int8_kernels), \
             "an int8 kernel launched on the fp path"
         for boxes, scores, valid, labels, thr, keep in captured:
@@ -965,6 +981,7 @@ def main(argv=None):
             s.say(f"int8_main_{name}_launches", launched)
             assert launched["nms_sorted"] > 0, name
             assert launched["vgg_stem_fused"] == 0, name
+            assert launched["group_norm_relu"] == 0, name
             for k in int8_kernels:
                 assert (launched[k] > 0) == (k == kernel), (name, k, launched)
             st["int8_launches"][name] = launched
@@ -1129,6 +1146,80 @@ def main(argv=None):
 
         time_parts("forward", det, im, sizes,
                    lambda x: det.backbone.body._stage1_fp(x))
+        kernels.append(time_group_norm())
+
+    @torch.no_grad()
+    def time_group_norm():
+        """The fused GroupNorm on the tensors the main path gives it: one
+        precision forward at batch 8 in each dtype, the first call at each
+        FPN level kept; the kernel against its plain version (float32 within
+        1e-5 of the largest output, bf16 within one bf16 ulp as in
+        tests/test_torch_group_norm.py), timed in a CUDA graph beside the
+        wrapper, the plain version, the modules it replaced (bias add,
+        GroupNorm, ReLU) and its bound (three passes of the bytes)."""
+        real = group_norm_kernel.group_norm_relu
+        im8, sizes8 = images(8, H, W, s.seed + 4)
+        levels = []
+        for dt in ("bfloat16", "float32"):
+            det, seen = st["dets"][dt], {}
+
+            def capture(y, *a):
+                seen.setdefault(tuple(y.shape), (y, *a))
+                return real(y, *a)
+            capture.launches = 0  # the wrapper counts on the module's name
+            det.test_mode = "precision"
+            group_norm_kernel.group_norm_relu = capture
+            try:
+                det.forward_inference(im8, sizes8)
+            finally:
+                group_norm_kernel.group_norm_relu = real
+            assert len(seen) == 5, sorted(seen)
+            for shape, args in sorted(seen.items(), reverse=True):
+                y, bias, weight, gn_bias, groups, eps = args
+                got = real(*args).float()
+                want = group_norm_kernel.group_norm_relu_plain(
+                    y.float(), bias, weight, gn_bias, groups, eps)
+                big = float(want.abs().max())
+                err = float((got - want).abs().max())
+                if dt == "float32":
+                    ratio = err / (1e-5 * big)
+                else:  # one bf16 ulp, no finer than that of 2^-8 of big
+                    def ulp(t):
+                        e = torch.frexp(t.abs().clamp_min(
+                            torch.finfo(torch.float32).tiny))[1]
+                        return torch.ldexp(torch.ones_like(t), e - 8)
+                    want = want.to(torch.bfloat16).float()
+                    tol = torch.maximum(ulp(want), ulp(torch.tensor(
+                        big * 2 ** -8, device=dev)))
+                    ratio = float(((got - want).abs() / tol).max())
+                assert ratio <= 1.0, (dt, shape, ratio)
+                ms = graph_ms(lambda: real(*args))
+                wrapper = cuda_time(lambda: real(*args), 20)
+                plain = cuda_time(lambda: group_norm_kernel.
+                                  group_norm_relu_plain(*args), 5, 1)
+                modules = cuda_time(lambda: F.relu(F.group_norm(
+                    (y if bias is None else y + bias).permute(0, 3, 1, 2),
+                    groups, weight, gn_bias, eps)).permute(0, 2, 3, 1), 20)
+                bound = 3 * y.numel() * y.element_size() / PEAK_BYTES_S * 1e3
+                row = dict(dtype=dt, shape=list(shape), ms=ms,
+                           wrapper_ms=wrapper, plain_ms=plain,
+                           modules_ms=modules, bound_ms=bound,
+                           roofline_pct=100 * bound / ms, max_abs_err=err,
+                           err_over_limit=ratio)
+                levels.append(row)
+                s.say(f"time_group_norm_relu_{dt}_{shape[1]}x{shape[2]}",
+                      " ".join(f"{k}={v}" for k, v in row.items()))
+        p3 = levels[0]
+        return dict(
+            name="group_norm_relu", route="cuda",
+            source="scan_tpu_torch/csrc/group_norm.cu", replaces=None,
+            launches=st["launches"]["group_norm_relu"],
+            max_abs_err=p3["max_abs_err"], ms=p3["ms"],
+            plain_ms=p3["plain_ms"], bound_ms=p3["bound_ms"],
+            bound_by="bytes", library_ms=p3["modules_ms"], dtype=p3["dtype"],
+            shape="B={} {}x{}x{}".format(*p3["shape"]),
+            timing="wrapper in a CUDA graph", wrapper_ms=p3["wrapper_ms"],
+            launches_by_forward=st["gn_by_forward"], levels=levels)
 
     def time_parts(prefix, det, im, sizes, stem):
         """The precision forward cut at its layers, each timed alone on its
@@ -1595,14 +1686,17 @@ def main(argv=None):
             s.say(f"train_loop_validation{i}",
                   f"AP50={res['AP50']} AP={res['AP']} launches={c}")
             assert c["nms_sorted"] > 0 and c["vgg_stem_fused"] > 0, c
+            assert c["group_norm_relu"] > 0, c
         in_val = {k: sum(c[k] for c, _ in vals) for k in total}
         train_k2 = total["vgg_stem_fused"] - in_val["vgg_stem_fused"]
         s.say("train_loop_launches", f"total={total} in_validation={in_val} "
               f"K2_in_training={train_k2} best_metric={best}")
         assert len(vals) == 2 and train_k2 == 2 * cfg.SOLVER.MAX_ITER
+        assert total["group_norm_relu"] == in_val["group_norm_relu"], \
+            "the fused GroupNorm launched in a training step"
         st["val_launches"] = vals[0][0]
         for k in st.get("kernels") or []:
-            if k["name"] in ("nms_sorted", "vgg_stem_fused"):
+            if k["name"] in ("nms_sorted", "vgg_stem_fused", "group_norm_relu"):
                 k["validation_launches_per_pass"] = vals[0][0][k["name"]]
             if k["name"] == "vgg_stem_fused":
                 k["train_launches_per_step"] = st["train_k2_per_step"]
@@ -1931,7 +2025,10 @@ def main(argv=None):
         train_k2 = total["vgg_stem_fused"] - in_val["vgg_stem_fused"]
         for v in vals:
             assert v["nms_sorted"] > 0 and v["vgg_stem_fused"] > 0, v
+            assert v["group_norm_relu"] > 0, v
         assert not any(total[k] for k in int8_kernels), total
+        assert total["group_norm_relu"] == in_val["group_norm_relu"], \
+            "the fused GroupNorm launched in a training step"
         assert train_k2 == 2 * len(steps), (train_k2, len(steps))
         # data wait per step: source + target, blocked in next()
         waits = [sum(x["waits"][i] for x in streams)
@@ -2027,9 +2124,11 @@ def main(argv=None):
                 assert c["nms_sorted"] > 0, c
                 if tag == "fp":
                     assert c["vgg_stem_fused"] > 0
+                    assert c["group_norm_relu"] > 0, c
                     assert not any(c[k] for k in int8_kernels), c
                 else:
                     assert c["fused_stem_int8"] > 0 and c["vgg_stem_fused"] == 0
+                    assert c["group_norm_relu"] == 0, c
                     assert not any(c[k] for k in int8_kernels
                                    if k != "fused_stem_int8"), c
                 st.setdefault("cli_test_launches", {})[tag] = c
@@ -2763,6 +2862,7 @@ def main(argv=None):
         s.say(f"{key}_main_launches", c)
         assert c["nms_sorted"] == 2, c
         assert c["vgg_stem_fused"] == 2 * k2_per_forward, c
+        assert c["group_norm_relu"] > 0, c
         assert not any(c[k] for k in int8_kernels), c
         check_nms_sets(captured, f"{key}_main")
         st.setdefault("new_launches", {})[f"{key}_eval"] = {
@@ -2943,6 +3043,7 @@ def main(argv=None):
               f"iteration={state['iteration']} frozen body == pickle: {same}")
         assert state["iteration"] == 2 and same
         assert c["nms_sorted"] > 0 and c["vgg_stem_fused"] == 0, c
+        assert c["group_norm_relu"] > 0, c
         assert not any(c[k] for k in int8_kernels), c
         st.setdefault("new_launches", {})["r101_validation"] = c
         buf = io.StringIO()
@@ -2961,6 +3062,7 @@ def main(argv=None):
               f"launches={c} stdout_last={last}")
         assert {"AP", "AP50"} <= set(json.loads(last))
         assert c["nms_sorted"] == 4 and c["vgg_stem_fused"] == 4, c
+        assert c["group_norm_relu"] > 0, c
         st.setdefault("new_launches", {})["atss_validation"] = c
 
     # ---- 32-34: the two-stage detector (Faster / Mask / Keypoint R-CNN) --
@@ -3653,7 +3755,8 @@ def main(argv=None):
                 torch.cuda.synchronize()
             c = counts()
             v = out["valid"]
-            assert c["nms_sorted"] == 1 and sum(c.values()) == 1, c
+            assert c["nms_sorted"] == 1 and c["group_norm_relu"] > 0, c
+            assert sum(c.values()) == 1 + c["group_norm_relu"], c
             assert int(v.sum()) > 0 and torch.isfinite(out["boxes"][v]).all()
             ms = cuda_time(lambda: det.forward_inference(im, sizes), 3, 1)
             s.say(f"fbnet_{arch}_eval_bf16_b4", f"ms={ms} img/s={4e3 / ms} "
@@ -3803,7 +3906,8 @@ def main(argv=None):
         c = counts()
         s.say("cli_detect_launches", c)
         assert c == dict(c, nms_sorted=1, vgg_stem_fused=1) and sum(
-            c.values()) == 2, c
+            c.values()) == 2 + c["group_norm_relu"], c
+        assert c["group_norm_relu"] > 0, c
         assert [cap[0].shape[0] for cap in captured] == [1], [
             cap[0].shape for cap in captured]
         check_nms_sets(captured, "single_image")

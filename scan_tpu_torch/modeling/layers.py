@@ -41,8 +41,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda import group_norm_kernel
 from ..ops.quant import (QuantizedActivation, f32, int8_conv_q, prepare_weight,
                          quantize_weight)
+from ..utils.profiler import count
 
 NO_SCALE = -1.0  # an |x|max buffer that holds no value (an |x|max is >= 0)
 
@@ -196,17 +198,29 @@ class Conv(nn.Conv2d):
                 self._wq = (key, prepare_weight(*quantize_weight(self.hwio())))
         return self._wq[1]
 
+    def _fp_operands(self, x):
+        """(NCHW input, weight, bias, compute dtype, masters) of the fp
+        branch, each cast to the compute dtype."""
+        dt = self.compute_dtype or self.weight.dtype
+        if isinstance(x, QuantizedActivation):
+            x = x.dequantize(dt)
+        w, b = self.weight, self.bias
+        masters = w.dtype != dt
+        if masters:  # float32 masters, cast at use
+            w = w.to(dt)
+            b = None if b is None else b.to(dt)
+        return to_nchw(x.to(dt)), w, b, dt, masters
+
+    def forward_unbiased(self, x):
+        """The fp branch on the card without its bias: (NHWC output in the
+        compute dtype, the bias cast as ``forward`` casts it), for a caller
+        that adds the bias itself (``ConvTower``'s fused GroupNorm)."""
+        x, w, b, _, _ = self._fp_operands(x)
+        return to_nhwc(self._conv_forward(x, w, None)), b
+
     def forward(self, x):
         if not self.quant:
-            dt = self.compute_dtype or self.weight.dtype
-            if isinstance(x, QuantizedActivation):
-                x = x.dequantize(dt)
-            w, b = self.weight, self.bias
-            masters = w.dtype != dt
-            if masters:  # float32 masters, cast at use
-                w = w.to(dt)
-                b = None if b is None else b.to(dt)
-            x = to_nchw(x.to(dt))
+            x, w, b, dt, masters = self._fp_operands(x)
             if dt == torch.float32:
                 return to_nhwc(self._conv_forward(x, w, b))
             if self.float_output and masters:
@@ -463,10 +477,36 @@ class FrozenBatchNorm(nn.Module):
             getattr(self, name).fill_(value)
 
 
+def fuses_group_norm(x, conv, gn):
+    """Whether a tower block takes the fused kernel
+    (``ops/cuda/group_norm_kernel.py``): a CUDA input of an fp conv whose
+    output the kernel takes (``supports``: bf16 or float32, the group width
+    and the group's size; the tower's 3x3 'same' conv keeps H and W), and
+    nothing that needs a gradient. Training forwards, the int8 convs, the
+    CPU and the shapes the kernel does not take run the modules as they
+    are."""
+    if isinstance(x, QuantizedActivation) or conv.quant or not x.is_cuda:
+        return False
+    out = (*x.shape[:3], conv.out_channels)
+    if not group_norm_kernel.supports(
+            out, conv.compute_dtype or conv.weight.dtype, gn.num_groups):
+        return False
+    return not torch.is_grad_enabled() or not any(
+        t is not None and t.requires_grad
+        for t in (x, conv.weight, conv.bias, gn.weight, gn.bias))
+
+
 class ConvTower(nn.Module):
     """num_convs x [conv3x3 -> (GN) -> ReLU]; the FCOS/condgraph tower.
     Submodules are named ``conv{i}`` / ``gn{i}`` as in ``scan_tpu``; with
-    ``quant`` the convs run the int8 branch."""
+    ``quant`` the convs run the int8 branch.
+
+    Where ``fuses_group_norm`` holds, a GN block runs the conv without its
+    bias and one kernel for the bias, the norm and the ReLU
+    (``group_norm_relu``): the same arithmetic, but the bias is added to the
+    conv's output in float32 before the statistics rather than rounded with
+    it to the compute dtype. The profiler's counters ``gn.calls`` and
+    ``gn.fused`` count the GN blocks and those that took the kernel."""
 
     def __init__(self, num_convs, in_channels, features, norm="GN",
                  quant=False):
@@ -481,9 +521,20 @@ class ConvTower(nn.Module):
 
     def forward(self, x):
         for i in range(self.num_convs):
-            x = getattr(self, f"conv{i}")(x)
-            if self.norm == "GN":
-                x = getattr(self, f"gn{i}")(x)
+            conv = getattr(self, f"conv{i}")
+            gn = getattr(self, f"gn{i}") if self.norm == "GN" else None
+            if gn is not None:
+                count("gn.calls", 1)
+                if fuses_group_norm(x, conv, gn):
+                    count("gn.fused", 1)
+                    y, b = conv.forward_unbiased(x)
+                    x = group_norm_kernel.group_norm_relu(
+                        y.contiguous(), b, gn.weight, gn.bias, gn.num_groups,
+                        gn.eps)
+                    continue
+            x = conv(x)
+            if gn is not None:
+                x = gn(x)
             x = F.relu(x)
         return x
 

@@ -31,7 +31,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("nms", "stem", "phase_max", "pair_phase_max", "conv0", "stem_int8")
+SOURCES = ("nms", "stem", "phase_max", "pair_phase_max", "conv0", "stem_int8",
+           "group_norm")
 
 _lock = threading.Lock()
 _libs = {}

@@ -61,7 +61,8 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
     assert "scan_tpu_torch.modeling.detector" in res["modules"]
     for name in ("ops.cuda.nms_kernel", "ops.cuda.stem_kernel", "ops.quant",
                  "ops.cuda.conv0_kernel", "ops.cuda.phase_max_kernel",
-                 "ops.cuda.stem_int8_kernel", "ops.focal_loss", "ops.iou_loss",
+                 "ops.cuda.stem_int8_kernel", "ops.cuda.group_norm_kernel",
+                 "ops.focal_loss", "ops.iou_loss",
                  "modeling.fcos.targets", "modeling.fcos.loss",
                  "modeling.condgraph.sampling", "modeling.discriminator.grl",
                  "modeling.discriminator.discriminators", "solver.build",

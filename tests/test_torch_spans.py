@@ -12,6 +12,7 @@ VGG width / 8 and 64x96 images:
 * each ``scan/`` layer span holds the aten ops of the benchmark's
   ``bench/`` wrapper of the same name;
 * the NMS counters are the sums of the masks entering and leaving K1;
+* the GroupNorm counters count the towers' GN blocks and the fused ones;
 * the recorder's arithmetic (self time, roots, capacity, reset), and each
   per-layer reader of ``benchmark/metrics`` that reads the recorder, on a
   made-up snapshot.
@@ -30,8 +31,10 @@ from benchmark.harness import trace as bench_trace
 from scan_tpu_torch.config import get_default_cfg
 from scan_tpu_torch.engine.train_step import make_da_train_step
 from scan_tpu_torch.modeling import detector as detector_module
+from scan_tpu_torch.modeling import layers
 from scan_tpu_torch.modeling.detector import build_detector
 from scan_tpu_torch.modeling.fcos import postprocess
+from scan_tpu_torch.ops.cuda import group_norm_kernel
 from scan_tpu_torch.solver.build import make_lr_scheduler, make_optimizer
 from scan_tpu_torch.utils import profiler
 
@@ -190,7 +193,8 @@ def test_spans_nest_as_the_layers_and_count_their_calls(how, batches,
     for name, s in snap["spans"].items():
         assert s["host_ms"] >= s["host_self_ms"] > 0, name
         assert s["device_ms"] is None, name  # no card
-    assert set(snap["counters"]) == {"nms.candidates", "nms.kept"}
+    # the CPU runs every GroupNorm block unfused: no ``gn.fused``
+    assert set(snap["counters"]) == {"nms.candidates", "nms.kept", "gn.calls"}
     if how == "recording":
         return
     got = _trace_spans(trace)
@@ -285,6 +289,31 @@ def test_nms_counters_are_the_masks_sums(monkeypatch):
     assert profiler.snapshot()["counters"] == got  # nothing records now
 
 
+def test_group_norm_counters(monkeypatch):
+    """``gn.calls`` counts every GroupNorm block of the towers (the FCOS
+    head's 4 + 4 and the condgraph's head_in 2 at each of 5 levels in an
+    eval forward) and ``gn.fused`` those that took the fused kernel: none on
+    the CPU; all of them with the gate and the kernel stood in for."""
+    cfg = tiny_cfg()
+    det = build_detector(cfg, device="cpu", train=False)
+    images = torch.zeros(B, H, W, 3, dtype=torch.uint8)
+    sizes = torch.tensor([[H, W]] * B)
+    det.forward_inference(images, sizes)
+    assert profiler.snapshot()["counters"] == {}  # nothing records now
+    with profiler.recording():
+        det.forward_inference(images, sizes)
+    counters = profiler.snapshot()["counters"]
+    assert counters["gn.calls"] == 50 and "gn.fused" not in counters
+    profiler.reset()
+    monkeypatch.setattr(layers, "fuses_group_norm", lambda *a: True)
+    monkeypatch.setattr(group_norm_kernel, "group_norm_relu",
+                        group_norm_kernel.group_norm_relu_plain)
+    with profiler.recording():
+        det.forward_inference(images, sizes)
+    counters = profiler.snapshot()["counters"]
+    assert counters["gn.calls"] == counters["gn.fused"] == 50
+
+
 def test_recorder_self_time_roots_capacity_and_reset(monkeypatch):
     clock = iter(range(0, 10 ** 9, 10 ** 6))  # 1 ms a stamp
     monkeypatch.setattr(profiler.time, "time_ns", lambda: next(clock))
@@ -331,7 +360,11 @@ READERS = {
     "eval.postprocess_host_ms": ({"inference": (20, 100.0, 600.0),
                                   "postprocess": (20, 30.0, 18.0)}, 1.5),
     "eval.nms_keep_pct": ({"nms.candidates": 400, "nms.kept": 100}, 25.0),
+    "eval.gn_fused_pct": ({"gn.calls": 200, "gn.fused": 150}, 75.0),
 }
+# the counter whose 0 leaves a counter reader nothing to divide by
+DIVISORS = {"eval.nms_keep_pct": "nms.candidates",
+            "eval.gn_fused_pct": "gn.calls"}
 
 
 def _reader(name):
@@ -357,8 +390,8 @@ def test_reader_on_a_made_up_snapshot(name, monkeypatch):
     # off the card (no device interval), or with nothing recorded: None
     for s in spans.values():
         s["device_ms"] = None
-    if name.startswith("eval.nms"):
-        counters["nms.candidates"] = 0
+    if name in DIVISORS:
+        counters[DIVISORS[name]] = 0
     if "host" not in name:
         assert reader.read(None) is None
     empty = {"spans": {}, "counters": {}, "dropped": 0}

@@ -33,7 +33,8 @@ final ``{"ok": true, ...}`` line:
      seeded uint8 batch, TEST.MODE common/precision/light in float32 and
      bfloat16. The launch counters are zeroed before and read after (the
      towers' fused GroupNorm, ``group_norm_relu``, counted in each forward
-     and launched in every one); the candidate sets entering NMS in
+     and launched in every one; the VGG body's ``bias_relu`` 11 times in
+     each, once a conv of stages 2-5); the candidate sets entering NMS in
      precision mode are held against the plain NMS;
   7. int8 calibration: the C2F config with ``TPU.INT8_INFERENCE`` in
      bfloat16, static activation scales from one seeded batch of 4;
@@ -47,8 +48,8 @@ final ``{"ok": true, ...}`` line:
      STEM_PAIR_CONV + PALLAS_PHASE_MAX): ``compute_predictions`` in all three
      modes at 800x1344, batch 4, bfloat16; the counters are zeroed before
      each variant, and its kernel must have launched and the other int8
-     kernels (and K2 and the fused GroupNorm: the int8 towers keep their
-     modules) not;
+     kernels (and K2, the fused GroupNorm and ``bias_relu``: the int8
+     towers and body keep their modules) not;
  11. timing with CUDA events: each kernel and its plain version at the
      checks' shapes; K1 and K3 also as their raw launches captured in a
      CUDA graph (device time without the wrapper's host work), K1 beside
@@ -64,7 +65,12 @@ final ``{"ok": true, ...}`` line:
      points) to split their time, K5 beside its earlier time, the fused
      GroupNorm on the tensors of a batch-8 precision forward at each FPN
      level in bf16 and float32 (``time_group_norm``: against its plain
-     version, then timed beside the modules it replaced and its bound), fp
+     version, then timed beside the modules it replaced and its bound), the
+     VGG body's ``bias_relu`` on the tensors of a batch-8 precision forward
+     at each stage's shape and mode in bf16 and float32
+     (``time_bias_relu``: equal to the module path, timed beside it, its
+     plain version, its bound and cuDNN's one-call conv + bias + ReLU, with
+     the wrapper's host time a call), fp
      and int8 forward img/s at bfloat16,
      precision, batch 8 (int8 for each stem variant), and both forwards cut
      at their layers; the fp forward of a detector built for training
@@ -81,7 +87,8 @@ final ``{"ok": true, ...}`` line:
      with 16 GT boxes an image (source) and fogged scenes (target): three
      steps with ``forward_target`` True, the first (from the seeded state)
      with target nodes and a transfer loss above 0, then three with False
-     (the counters zeroed before and read after: K2 twice a step, no other
+     (the counters zeroed before and read after: K2 twice a step,
+     ``bias_relu`` twice a VGG forward (the frozen stage 2), no other
      kernel, the fused GroupNorm neither), then one step of each variant under
      ``torch.cuda.set_sync_debug_mode("error")``; every loss finite, the
      trained parameters moved and the frozen ones not, the prototype
@@ -321,6 +328,9 @@ PEAK_BF16_S = 989e12  # tensor cores, dense
 PEAK_INT8_S = 1979e12  # tensor cores, dense
 PEAK_TF32_S = 495e12  # tensor cores, dense
 PAD1 = ((1, 1), (1, 1))
+# the VGG body's convs after K2 (stages 2-5), each followed by ``bias_relu``
+# in an fp eval forward; 2 of them (frozen stage 2) in a training forward
+VGG_CONVS, VGG_FROZEN_CONVS = 11, 2
 # PERF.md's times of the designs that the kernels replaced (NVIDIA H100
 # 80GB HBM3, 700.00 W): K1's wrapper at (4, 512), K3, K2 float32 (CUDA
 # cores) and K5 (``__dp4a`` conv1_1) and its probe at (4, 800, 1344)
@@ -516,10 +526,10 @@ def main(argv=None):
     from scan_tpu_torch.modeling.layers import stored_scale
     from scan_tpu_torch.ops import nms as nms_mod
     from scan_tpu_torch.ops import quant
-    from scan_tpu_torch.ops.cuda import (build, conv0_kernel,
-                                         group_norm_kernel, nms_kernel,
-                                         phase_max_kernel, stem_int8_kernel,
-                                         stem_kernel)
+    from scan_tpu_torch.ops.cuda import (bias_relu_kernel, build,
+                                         conv0_kernel, group_norm_kernel,
+                                         nms_kernel, phase_max_kernel,
+                                         stem_int8_kernel, stem_kernel)
 
     s = Smoke(args.seed)
     dev = torch.device("cuda")
@@ -537,6 +547,7 @@ def main(argv=None):
     counters = {"nms_sorted": nms_kernel.nms_sorted,
                 "vgg_stem_fused": stem_kernel.fused_stem,
                 "group_norm_relu": group_norm_kernel.group_norm_relu,
+                "bias_relu": bias_relu_kernel.bias_relu,
                 **int8_kernels}
 
     def zero_counts():
@@ -779,19 +790,23 @@ def main(argv=None):
                     for dt in ("float32", "bfloat16")}
             torch.cuda.synchronize()
             zero_counts()
-            gn = {}
+            gn, br = {}, {}
             for dt, det in dets.items():
                 for mode in ("common", "precision", "light"):
                     det.test_mode = mode
                     st["capture"] = mode == "precision"
                     n0 = group_norm_kernel.group_norm_relu.launches
+                    b0 = bias_relu_kernel.bias_relu.launches
                     preds = compute_predictions(det, [batch], progress_every=0)
                     st["capture"] = False
                     gn[f"{dt}_{mode}"] = \
                         group_norm_kernel.group_norm_relu.launches - n0
+                    br[f"{dt}_{mode}"] = \
+                        bias_relu_kernel.bias_relu.launches - b0
                     s.say(f"main_{dt}_{mode}",
                           f"detections={check_preds(preds, 4)} "
-                          f"group_norm_relu={gn[f'{dt}_{mode}']}")
+                          f"group_norm_relu={gn[f'{dt}_{mode}']} "
+                          f"bias_relu={br[f'{dt}_{mode}']}")
             st["launches"] = counts()
         finally:
             pp_mod.nms_keep_mask = real
@@ -799,7 +814,12 @@ def main(argv=None):
         assert st["launches"]["nms_sorted"] > 0
         assert st["launches"]["vgg_stem_fused"] > 0
         assert all(v > 0 for v in gn.values()), gn  # every fp eval forward
+        # one forward a mode: every conv of VGG stages 2-5
+        assert all(v == VGG_CONVS for v in br.values()), br
+        assert (st["launches"]["bias_relu"]
+                == VGG_CONVS * st["launches"]["vgg_stem_fused"]), st["launches"]
         st["gn_by_forward"] = gn
+        st["br_by_forward"] = br
         assert not any(st["launches"][k] for k in int8_kernels), \
             "an int8 kernel launched on the fp path"
         for boxes, scores, valid, labels, thr, keep in captured:
@@ -982,6 +1002,7 @@ def main(argv=None):
             assert launched["nms_sorted"] > 0, name
             assert launched["vgg_stem_fused"] == 0, name
             assert launched["group_norm_relu"] == 0, name
+            assert launched["bias_relu"] == 0, name
             for k in int8_kernels:
                 assert (launched[k] > 0) == (k == kernel), (name, k, launched)
             st["int8_launches"][name] = launched
@@ -1147,6 +1168,7 @@ def main(argv=None):
         time_parts("forward", det, im, sizes,
                    lambda x: det.backbone.body._stage1_fp(x))
         kernels.append(time_group_norm())
+        kernels.append(time_bias_relu())
 
     @torch.no_grad()
     def time_group_norm():
@@ -1220,6 +1242,129 @@ def main(argv=None):
             shape="B={} {}x{}x{}".format(*p3["shape"]),
             timing="wrapper in a CUDA graph", wrapper_ms=p3["wrapper_ms"],
             launches_by_forward=st["gn_by_forward"], levels=levels)
+
+    @torch.no_grad()
+    def time_bias_relu():
+        """The VGG body's bias + ReLU (+ pool) kernel on the tensors the main
+        path gives it: one precision forward at batch 8 in each dtype, the
+        first call of each shape and mode kept with its conv's input. The
+        kernel equal (``torch.equal``) to the module path (bias add,
+        ``F.relu``, ``F.max_pool2d``), timed in a CUDA graph beside its bound
+        (one read of the conv's output, one write of the result), the plain
+        version and the module path it replaced; its wrapper's host time a
+        call, alone and under ``profiler.recording()``, beside that of the
+        module path's ops; and, as a yardstick the port never calls, cuDNN's
+        conv + bias + ReLU in one call (``torch.cudnn_convolution_relu``,
+        then ``F.max_pool2d`` at a stage's end) beside the unbiased conv and
+        the kernel."""
+        from scan_tpu_torch.utils import profiler
+
+        def host_us(fn, n=200):
+            """Host us a call of ``fn``, enqueued ``n`` times."""
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            us = 1e6 * (time.perf_counter() - t0) / n
+            torch.cuda.synchronize()
+            return us
+
+        def modules(y, bias, pool):
+            x = F.relu(y.add_(bias))
+            if pool:
+                x = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+            return x
+
+        real = bias_relu_kernel.bias_relu
+        im8, sizes8 = images(8, H, W, s.seed + 5)
+        rows, per_forward = [], {}
+        for dt in ("bfloat16", "float32"):
+            det, seen, inputs, calls = st["dets"][dt], {}, [], {}
+            body = det.backbone.body
+            convs = [getattr(body, f"conv{i}") for i in range(2, 13)]
+
+            def capture(y, bias, pool):
+                key = (tuple(y.shape), pool)
+                seen.setdefault(key, (y.clone(), bias, inputs[-1]))
+                calls[key] = calls.get(key, 0) + 1
+                return real(y, bias, pool)
+            capture.launches = 0  # the wrapper counts on the module's name
+            for conv in convs:
+                def unbiased(x, conv=conv):
+                    inputs.append((x, conv))
+                    return type(conv).forward_unbiased(conv, x)
+                conv.forward_unbiased = unbiased
+            det.test_mode = "precision"
+            bias_relu_kernel.bias_relu = capture
+            try:
+                det.forward_inference(im8, sizes8)
+            finally:
+                bias_relu_kernel.bias_relu = real
+                for conv in convs:
+                    del conv.forward_unbiased
+            assert capture.launches == VGG_CONVS, capture.launches
+            assert len(seen) == 8, sorted(seen)  # 4 stages x 2 modes
+            for (shape, pool), (y, bias, (x, conv)) in seen.items():
+                want = modules(y.clone(), bias, pool)
+                got = real(y.clone(), bias, pool)
+                equal = bool(torch.equal(got, want))
+                assert equal, (dt, shape, pool)
+                yy = y.clone()
+                ms = graph_ms(lambda: real(yy, bias, pool))
+                plain = cuda_time(lambda: bias_relu_kernel.bias_relu_plain(
+                    yy, bias, pool), 20)
+                mod = cuda_time(lambda: modules(yy, bias, pool), 20)
+                host = host_us(lambda: real(yy, bias, pool))
+                with profiler.recording():
+                    host_rec = host_us(lambda: real(yy, bias, pool))
+                profiler.reset()
+                host_mod = host_us(lambda: modules(yy, bias, pool))
+                xc = x.to(y.dtype).permute(0, 3, 1, 2)
+                w = conv.weight.to(y.dtype)
+                conv_ms = cuda_time(lambda: F.conv2d(xc, w, None, padding=1), 10)
+                conv_bias_ms = cuda_time(lambda: F.conv2d(xc, w, bias,
+                                                          padding=1), 10)
+
+                def fused():
+                    z = torch.cudnn_convolution_relu(xc, w, bias, (1, 1),
+                                                     (1, 1), (1, 1), 1)
+                    return F.max_pool2d(z, 2, 2) if pool else z
+                try:
+                    cudnn_ms = cuda_time(fused, 10)
+                except RuntimeError as e:  # a yardstick, not a check
+                    cudnn_ms = f"refused: {str(e)[:120]}"
+                nbytes = (y.numel() + got.numel()) * y.element_size()
+                bound = nbytes / PEAK_BYTES_S * 1e3
+                row = dict(dtype=dt, shape=list(shape), pool=pool, ms=ms,
+                           bound_ms=bound, roofline_pct=100 * bound / ms,
+                           plain_ms=plain, modules_ms=mod, host_us=host,
+                           host_us_recording=host_rec, modules_host_us=host_mod,
+                           conv_ms=conv_ms, conv_bias_ms=conv_bias_ms,
+                           conv_plus_kernel_ms=conv_ms + ms,
+                           cudnn_conv_relu_ms=cudnn_ms, equal=equal)
+                rows.append(row)
+                s.say(f"time_bias_relu_{dt}_{shape[1]}x{shape[2]}x{shape[3]}"
+                      f"_{'pool' if pool else 'inplace'}",
+                      " ".join(f"{k}={v}" for k, v in row.items()))
+            # a forward's 11 calls: stages 3-5 run their first shape twice
+            assert sum(calls.values()) == VGG_CONVS, calls
+            pick = {(tuple(r["shape"]), r["pool"]): r for r in rows
+                    if r["dtype"] == dt}
+            per_forward[dt] = {k: sum(n * pick[c][k] for c, n in calls.items())
+                               for k in ("ms", "bound_ms", "modules_ms")}
+            s.say(f"time_bias_relu_{dt}_per_forward", per_forward[dt])
+        s2 = rows[0]
+        return dict(
+            name="bias_relu", route="cuda",
+            source="scan_tpu_torch/csrc/bias_relu.cu", replaces=None,
+            launches=st["launches"]["bias_relu"], max_abs_err=0.0,
+            ms=s2["ms"], plain_ms=s2["plain_ms"], bound_ms=s2["bound_ms"],
+            bound_by="bytes", library_ms=s2["modules_ms"], dtype=s2["dtype"],
+            shape="B={} {}x{}x{}".format(*s2["shape"]),
+            timing="wrapper in a CUDA graph", host_us=s2["host_us"],
+            launches_by_forward=st["br_by_forward"], per_forward=per_forward,
+            calls=rows)
 
     def time_parts(prefix, det, im, sizes, stem):
         """The precision forward cut at its layers, each timed alone on its
@@ -1590,7 +1735,11 @@ def main(argv=None):
         launched = counts()
         s.say(f"{key}_main_launches", launched)
         assert launched["vgg_stem_fused"] == 2 * len(variants), launched
-        assert not any(v for k, v in launched.items() if k != "vgg_stem_fused")
+        # the frozen stage 2 of each VGG forward takes the bias + ReLU kernel
+        assert launched["bias_relu"] == (
+            VGG_FROZEN_CONVS * launched["vgg_stem_fused"]), launched
+        assert not any(v for k, v in launched.items()
+                       if k not in ("vgg_stem_fused", "bias_relu"))
         per_step = launched["vgg_stem_fused"] // len(variants)
         for ft in (False, True):  # no host round trip inside a step
             gen = torch.Generator(device=dev).manual_seed(2000 + ft)
@@ -1687,8 +1836,11 @@ def main(argv=None):
                   f"AP50={res['AP50']} AP={res['AP']} launches={c}")
             assert c["nms_sorted"] > 0 and c["vgg_stem_fused"] > 0, c
             assert c["group_norm_relu"] > 0, c
+            assert c["bias_relu"] == VGG_CONVS * c["vgg_stem_fused"], c
         in_val = {k: sum(c[k] for c, _ in vals) for k in total}
         train_k2 = total["vgg_stem_fused"] - in_val["vgg_stem_fused"]
+        assert (total["bias_relu"] - in_val["bias_relu"]
+                == VGG_FROZEN_CONVS * train_k2), (total, in_val)
         s.say("train_loop_launches", f"total={total} in_validation={in_val} "
               f"K2_in_training={train_k2} best_metric={best}")
         assert len(vals) == 2 and train_k2 == 2 * cfg.SOLVER.MAX_ITER
@@ -1696,7 +1848,8 @@ def main(argv=None):
             "the fused GroupNorm launched in a training step"
         st["val_launches"] = vals[0][0]
         for k in st.get("kernels") or []:
-            if k["name"] in ("nms_sorted", "vgg_stem_fused", "group_norm_relu"):
+            if k["name"] in ("nms_sorted", "vgg_stem_fused", "group_norm_relu",
+                             "bias_relu"):
                 k["validation_launches_per_pass"] = vals[0][0][k["name"]]
             if k["name"] == "vgg_stem_fused":
                 k["train_launches_per_step"] = st["train_k2_per_step"]
@@ -2026,10 +2179,13 @@ def main(argv=None):
         for v in vals:
             assert v["nms_sorted"] > 0 and v["vgg_stem_fused"] > 0, v
             assert v["group_norm_relu"] > 0, v
+            assert v["bias_relu"] == VGG_CONVS * v["vgg_stem_fused"], v
         assert not any(total[k] for k in int8_kernels), total
         assert total["group_norm_relu"] == in_val["group_norm_relu"], \
             "the fused GroupNorm launched in a training step"
         assert train_k2 == 2 * len(steps), (train_k2, len(steps))
+        assert (total["bias_relu"] - in_val["bias_relu"]
+                == VGG_FROZEN_CONVS * train_k2), (total, in_val)
         # data wait per step: source + target, blocked in next()
         waits = [sum(x["waits"][i] for x in streams)
                  for i in range(len(steps))]
@@ -2125,10 +2281,11 @@ def main(argv=None):
                 if tag == "fp":
                     assert c["vgg_stem_fused"] > 0
                     assert c["group_norm_relu"] > 0, c
+                    assert c["bias_relu"] == VGG_CONVS * c["vgg_stem_fused"], c
                     assert not any(c[k] for k in int8_kernels), c
                 else:
                     assert c["fused_stem_int8"] > 0 and c["vgg_stem_fused"] == 0
-                    assert c["group_norm_relu"] == 0, c
+                    assert c["group_norm_relu"] == 0 == c["bias_relu"], c
                     assert not any(c[k] for k in int8_kernels
                                    if k != "fused_stem_int8"), c
                 st.setdefault("cli_test_launches", {})[tag] = c
@@ -2544,8 +2701,9 @@ def main(argv=None):
                     assert all(math.isfinite(v) for v in m.values()), m
                     assert fams == sorted(["GA", "CA"] + (["OUT"] if op else []))
                     assert c["vgg_stem_fused"] == 2
+                    assert c["bias_relu"] == 2 * VGG_FROZEN_CONVS, c
                     assert not any(v for k, v in c.items()
-                                   if k != "vgg_stem_fused")
+                                   if k not in ("vgg_stem_fused", "bias_relu"))
                     small_runs[(dt, tag.split("_", 1)[1], "card")] = run_step(
                         det, cfg, *small[dev], False, reset=init)
                     small_runs[(dt, tag.split("_", 1)[1], "cpu")] = run_step(
@@ -2623,7 +2781,9 @@ def main(argv=None):
         assert at_start == [True] and len(steps) == 4
         assert all(math.isfinite(v) for v in losses)
         assert c["vgg_stem_fused"] == 4, c
-        assert not any(v for k, v in c.items() if k != "vgg_stem_fused"), c
+        assert c["bias_relu"] == VGG_FROZEN_CONVS * 4, c
+        assert not any(v for k, v in c.items()
+                       if k not in ("vgg_stem_fused", "bias_relu")), c
         assert {"model_0000002.pth", "model_0000004.pth",
                 "model_final.pth"} <= set(files)
         slim = str(tmp_root / "slim" / "model_slim.pth")
@@ -2863,6 +3023,8 @@ def main(argv=None):
         assert c["nms_sorted"] == 2, c
         assert c["vgg_stem_fused"] == 2 * k2_per_forward, c
         assert c["group_norm_relu"] > 0, c
+        # 0 on the ResNet bodies
+        assert c["bias_relu"] == VGG_CONVS * c["vgg_stem_fused"], c
         assert not any(c[k] for k in int8_kernels), c
         check_nms_sets(captured, f"{key}_main")
         st.setdefault("new_launches", {})[f"{key}_eval"] = {
@@ -2953,8 +3115,10 @@ def main(argv=None):
                 assert moved == trainable, sorted(trainable - moved)[:5]
                 assert not still, still[:5]
                 assert c["vgg_stem_fused"] == k2_per_step, c
+                assert c["bias_relu"] == (
+                    VGG_FROZEN_CONVS * c["vgg_stem_fused"]), c
                 assert not any(v for k, v in c.items()
-                               if k != "vgg_stem_fused"), c
+                               if k not in ("vgg_stem_fused", "bias_relu")), c
                 st.setdefault("new_launches", {})[f"{key}_da_step"] = c
                 opt = make_optimizer(cfg, det)
                 step = make_da_train_step(det, opt)
@@ -3043,7 +3207,7 @@ def main(argv=None):
               f"iteration={state['iteration']} frozen body == pickle: {same}")
         assert state["iteration"] == 2 and same
         assert c["nms_sorted"] > 0 and c["vgg_stem_fused"] == 0, c
-        assert c["group_norm_relu"] > 0, c
+        assert c["group_norm_relu"] > 0 and c["bias_relu"] == 0, c
         assert not any(c[k] for k in int8_kernels), c
         st.setdefault("new_launches", {})["r101_validation"] = c
         buf = io.StringIO()
@@ -3063,6 +3227,7 @@ def main(argv=None):
         assert {"AP", "AP50"} <= set(json.loads(last))
         assert c["nms_sorted"] == 4 and c["vgg_stem_fused"] == 4, c
         assert c["group_norm_relu"] > 0, c
+        assert c["bias_relu"] == VGG_CONVS * 4, c
         st.setdefault("new_launches", {})["atss_validation"] = c
 
     # ---- 32-34: the two-stage detector (Faster / Mask / Keypoint R-CNN) --
@@ -3781,10 +3946,11 @@ def main(argv=None):
             zero_counts()
             d.forward_inference(im, sizes)
             torch.cuda.synchronize()
-            got[tag] = counts()["vgg_stem_fused"]
-        s.say("k2_launches_one_forward", f"plain VGG16={got['vgg']} "
-              f"VGG16-BN={got['vgg_bn']}")
-        assert got == {"vgg": 1, "vgg_bn": 0}, got
+            c = counts()
+            got[tag] = (c["vgg_stem_fused"], c["bias_relu"])
+        s.say("k2_and_bias_relu_launches_one_forward",
+              f"plain VGG16={got['vgg']} VGG16-BN={got['vgg_bn']}")
+        assert got == {"vgg": (1, VGG_CONVS), "vgg_bn": (0, 0)}, got
         del plain, bn
         body_train("vgg_bn", vgg_bn)
 
@@ -3905,8 +4071,9 @@ def main(argv=None):
         torch.cuda.synchronize()
         c = counts()
         s.say("cli_detect_launches", c)
-        assert c == dict(c, nms_sorted=1, vgg_stem_fused=1) and sum(
-            c.values()) == 2 + c["group_norm_relu"], c
+        assert c == dict(c, nms_sorted=1, vgg_stem_fused=1,
+                         bias_relu=VGG_CONVS) and sum(
+            c.values()) == 2 + VGG_CONVS + c["group_norm_relu"], c
         assert c["group_norm_relu"] > 0, c
         assert [cap[0].shape[0] for cap in captured] == [1], [
             cap[0].shape for cap in captured]
@@ -4029,6 +4196,8 @@ def main(argv=None):
         vals = list(ms.values())
         assert all(b >= a * (1 - spread) for a, b in zip(vals, vals[1:])), ms
         assert launched["vgg_stem_fused"] > 0 and launched["nms_sorted"] > 0
+        assert (launched["bias_relu"]
+                == VGG_CONVS * launched["vgg_stem_fused"]), launched
         summary = trace_summary.summarise(     # every op, for the search
             str(trace_dir / profiler.TRACE_FILE), 1 << 30)
         say_trace("profile_inference", summary)
@@ -4186,8 +4355,9 @@ def main(argv=None):
                       f"of a fresh SGD; plain after a warm one)")
                 assert not bad, bad[:5]
                 assert c["vgg_stem_fused"] == 2, c
+                assert c["bias_relu"] == 2 * VGG_FROZEN_CONVS, c
                 assert not any(v for k, v in c.items()
-                               if k != "vgg_stem_fused"), c
+                               if k not in ("vgg_stem_fused", "bias_relu")), c
             st.setdefault("new_launches", {})["dp_step"] = launches
             flat = torch.zeros(numel, dtype=torch.float32, device=dev)
             ar_ms = cuda_time(lambda: dist.all_reduce(flat), 10, 2)

@@ -62,12 +62,24 @@ conv, stage 1's included, is a ``Conv(quant=True)`` with its own scale, and
 no stem scale, K2 or K3-K6 takes part). Stages 1-2 stay frozen, their
 norms included (``scan_tpu``'s solver freezes ``bn0..bn3`` with
 ``conv0..conv3``, ``solver/build.py:59-97``).
+
+After K2, where ``fuses_bias_relu`` holds (a CUDA input of an fp conv
+without BN, in a shape the kernel takes, nothing needing a gradient), a
+conv runs without its bias and one kernel adds the bias and applies the
+ReLU in place (``ops/cuda/bias_relu_kernel.py``), at a stage's last conv
+also the 2x2 pool, writing only the pooled tensor: the module path's
+result, exactly. So an fp eval forward takes it at all 11 convs of stages
+2-5, a training forward at the frozen stage 2 only, and the CPU, int8 and
+VGG16-BN never. The profiler's counters ``vgg.convs`` and ``vgg.fused``
+count the fp convs outside K2 (stages 2-5 of the VGG16 body) and those
+that took the kernel.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.cuda import bias_relu_kernel
 from ...ops.cuda.conv0_kernel import conv0_s8, pack_weight
 from ...ops.cuda.phase_max_kernel import pair_phase_max_s8, phase_max_requant
 from ...ops.cuda.stem_int8_kernel import fused_stem_int8
@@ -76,6 +88,7 @@ from ...ops.cuda.stem_kernel import STEM_CH, STEM_IN, fused_stem
 from ...ops.cuda.stem_kernel import pack_weights as pack_stem
 from ...ops.quant import (QuantizedActivation, int8_conv, max_pool_2x2,
                           quantize_activation)
+from ...utils.profiler import count
 from ..layers import (ChannelGroupNorm, Conv, add_scales, record_amax,
                       stored_scale, to_nchw, to_nhwc)
 
@@ -85,6 +98,27 @@ FREEZE_AT = 2  # stages frozen in a VGG body (scan_tpu/solver/build.py:66)
 N_FROZEN_CONVS = sum(VGG16_STAGE_BLOCKS[:FREEZE_AT])
 STEM_SCALES = ("conv0_act", "conv1_act", "stem_out_act")
 _PAD1 = ((1, 1), (1, 1))
+
+
+def fuses_bias_relu(x, conv, with_bn=False, pool=False):
+    """Whether a VGG conv takes the bias + ReLU (+ pool) kernel
+    (``ops/cuda/bias_relu_kernel.py``): a CUDA input of an fp conv with a
+    bias and no norm after it (``with_bn``), whose output the kernel takes
+    (``supports``: bf16 or float32, C a multiple of the 16-byte vector; the
+    3x3 'same' conv keeps H and W), and nothing that needs a gradient.
+    Training forwards of the trainable stages, the int8 convs, VGG16-BN, the
+    CPU and the shapes the kernel does not take run the modules as they
+    are."""
+    if (with_bn or conv.quant or conv.bias is None
+            or isinstance(x, QuantizedActivation) or not x.is_cuda):
+        return False
+    out = (*x.shape[:3], conv.out_channels)
+    if not bias_relu_kernel.supports(
+            out, conv.compute_dtype or conv.weight.dtype, pool):
+        return False
+    return not torch.is_grad_enabled() or not (
+        x.requires_grad or conv.weight.requires_grad
+        or conv.bias.requires_grad)
 
 
 class VGG16(nn.Module):
@@ -138,13 +172,25 @@ class VGG16(nn.Module):
                 x = self._stage1_int8(x) if self.quant else self._stage1_fp(x)
                 idx += 2
             else:
-                for _ in range(blocks):
-                    x = getattr(self, f"conv{idx}")(x)
-                    if self.with_bn:
-                        x = getattr(self, f"bn{idx}")(x)
-                    x = F.relu(x)
+                pooled = False
+                for i in range(blocks):
+                    conv = getattr(self, f"conv{idx}")
                     idx += 1
-                x = to_nhwc(F.max_pool2d(to_nchw(x), 2, 2))
+                    pool = i == blocks - 1
+                    if not conv.quant:
+                        count("vgg.convs", 1)
+                    if fuses_bias_relu(x, conv, self.with_bn, pool):
+                        count("vgg.fused", 1)
+                        y, b = conv.forward_unbiased(x)
+                        x = bias_relu_kernel.bias_relu(y.contiguous(), b, pool)
+                        pooled = pool
+                        continue
+                    x = conv(x)
+                    if self.with_bn:
+                        x = getattr(self, f"bn{idx - 1}")(x)
+                    x = F.relu(x)
+                if not pooled:
+                    x = to_nhwc(F.max_pool2d(to_nchw(x), 2, 2))
             if isinstance(x, QuantizedActivation):
                 # the next conv reads the s8 tensor; the C1 tap gets fp
                 outs.append(x.dequantize(self.dtype or torch.float32))

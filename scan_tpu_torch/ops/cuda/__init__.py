@@ -16,3 +16,15 @@ def refuse_autograd(name: str, *tensors):
             f"{name}: the kernel has no backward and an input requires "
             "grad; call it under torch.no_grad() or on frozen tensors, or "
             "run its plain version for a gradient")
+
+
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_raw_stream(index):
+    """The current CUDA stream of device ``index`` as the handle a launch
+    takes: ``torch.cuda.current_stream(index).cuda_stream`` without building
+    a ``Stream`` object, for wrappers called many times a forward."""
+    if _RAW_STREAM is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return _RAW_STREAM(index)

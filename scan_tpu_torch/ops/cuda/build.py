@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 SOURCES = ("nms", "stem", "phase_max", "pair_phase_max", "conv0", "stem_int8",
-           "group_norm")
+           "group_norm", "bias_relu")
 
 _lock = threading.Lock()
 _libs = {}

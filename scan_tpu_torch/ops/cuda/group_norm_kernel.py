@@ -22,7 +22,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from . import build, refuse_autograd
+from . import build, current_raw_stream, refuse_autograd
 
 VECTOR = {torch.bfloat16: 8, torch.float32: 4}  # channels a 16-byte load
 THREADS = 256
@@ -54,12 +54,13 @@ def _chunks(b, hw, sms):
     return -(-hw // px), px
 
 
+@functools.lru_cache(maxsize=None)
 def _fn():
+    """The C entry point with its argument types bound, loaded once."""
     fn = build.load("group_norm").scan_group_norm_relu
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -91,7 +92,7 @@ def supports(shape, dtype, groups):
 
 def _check(y, bias, weight, gn_bias, groups):
     name = "group_norm_relu"
-    if y.device.type != "cuda":
+    if not y.is_cuda:
         raise ValueError(f"{name}: unsupported device {y.device}; the CPU "
                          "runs group_norm_relu_plain")
     err = _shape_error(y.shape, y.dtype, groups)
@@ -106,8 +107,9 @@ def _check(y, bias, weight, gn_bias, groups):
               (gn_bias, "gn_bias", (weight.dtype,))]
     if bias is not None:
         params.append((bias, "bias", (y.dtype,)))
+    index = y.get_device()
     for t, what, dtypes in params:
-        if (t.device != y.device or t.dtype not in dtypes
+        if (t.get_device() != index or t.dtype not in dtypes
                 or t.shape != (c,) or not t.is_contiguous()):
             raise ValueError(f"{name}: {what} must be a contiguous ({c},) "
                              f"tensor of {dtypes} on {y.device}, got "
@@ -126,24 +128,24 @@ def group_norm_relu(y, bias, weight, gn_bias, groups, eps=1e-5):
     (``refuse_autograd``)."""
     refuse_autograd("group_norm_relu", y, bias, weight, gn_bias)
     _check(y, bias, weight, gn_bias, groups)
+    index = y.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return group_norm_relu(y, bias, weight, gn_bias, groups, eps)
     b, h, w, c = y.shape
     out = torch.empty_like(y)
     if out.numel() == 0:
         return out
     hw = h * w
-    sms = _sm_count(y.device.index if y.device.index is not None
-                    else torch.cuda.current_device())
-    n, px = _chunks(b, hw, sms)
-    part = torch.empty((b, n, groups, 3), dtype=torch.float32,
-                       device=y.device)
-    with torch.cuda.device(y.device):
-        err = _fn()(
-            y.data_ptr(), None if bias is None else bias.data_ptr(),
-            weight.data_ptr(), gn_bias.data_ptr(), part.data_ptr(),
-            out.data_ptr(), b, hw, c, groups, n, px,
-            int(y.dtype == torch.bfloat16),
-            int(weight.dtype == torch.bfloat16), float(eps),
-            torch.cuda.current_stream().cuda_stream)
+    n, px = _chunks(b, hw, _sm_count(index))
+    part = y.new_empty((b, n, groups, 3), dtype=torch.float32)
+    err = _fn()(
+        y.data_ptr(), None if bias is None else bias.data_ptr(),
+        weight.data_ptr(), gn_bias.data_ptr(), part.data_ptr(),
+        out.data_ptr(), b, hw, c, groups, n, px,
+        int(y.dtype == torch.bfloat16),
+        int(weight.dtype == torch.bfloat16), float(eps),
+        current_raw_stream(index))
     if err != 0:
         raise RuntimeError(f"group_norm_relu launch failed: CUDA error {err}")
     group_norm_relu.launches += 1

@@ -62,6 +62,7 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
     for name in ("ops.cuda.nms_kernel", "ops.cuda.stem_kernel", "ops.quant",
                  "ops.cuda.conv0_kernel", "ops.cuda.phase_max_kernel",
                  "ops.cuda.stem_int8_kernel", "ops.cuda.group_norm_kernel",
+                 "ops.cuda.bias_relu_kernel",
                  "ops.focal_loss", "ops.iou_loss",
                  "modeling.fcos.targets", "modeling.fcos.loss",
                  "modeling.condgraph.sampling", "modeling.discriminator.grl",

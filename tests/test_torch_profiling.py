@@ -182,8 +182,10 @@ def test_profile_inference_on_cpu_writes_rows_and_trace(tmp_path):
     calls = {k: v["calls"] for k, v in snap["spans"].items()}
     assert calls == {"inference": 1, "prep": 1, "backbone": 1,
                      "middle_head": 1, "fcos": 1, "postprocess": 1, "nms": 1}
-    # the CPU counts the towers' GroupNorm blocks and fuses none
-    assert set(snap["counters"]) == {"nms.candidates", "nms.kept", "gn.calls"}
+    # the CPU counts the towers' GroupNorm blocks and the VGG convs and
+    # fuses none
+    assert set(snap["counters"]) == {"nms.candidates", "nms.kept", "gn.calls",
+                                     "vgg.convs"}
     assert summary["spans"] == {"layers": {}, "idle_gaps": []}  # no card
 
 

@@ -193,8 +193,10 @@ def test_spans_nest_as_the_layers_and_count_their_calls(how, batches,
     for name, s in snap["spans"].items():
         assert s["host_ms"] >= s["host_self_ms"] > 0, name
         assert s["device_ms"] is None, name  # no card
-    # the CPU runs every GroupNorm block unfused: no ``gn.fused``
-    assert set(snap["counters"]) == {"nms.candidates", "nms.kept", "gn.calls"}
+    # the CPU runs every GroupNorm block and VGG conv unfused: no
+    # ``gn.fused``, no ``vgg.fused``
+    assert set(snap["counters"]) == {"nms.candidates", "nms.kept", "gn.calls",
+                                     "vgg.convs"}
     if how == "recording":
         return
     got = _trace_spans(trace)
@@ -361,10 +363,12 @@ READERS = {
                                   "postprocess": (20, 30.0, 18.0)}, 1.5),
     "eval.nms_keep_pct": ({"nms.candidates": 400, "nms.kept": 100}, 25.0),
     "eval.gn_fused_pct": ({"gn.calls": 200, "gn.fused": 150}, 75.0),
+    "eval.vgg_fused_pct": ({"vgg.convs": 220, "vgg.fused": 209}, 95.0),
 }
 # the counter whose 0 leaves a counter reader nothing to divide by
 DIVISORS = {"eval.nms_keep_pct": "nms.candidates",
-            "eval.gn_fused_pct": "gn.calls"}
+            "eval.gn_fused_pct": "gn.calls",
+            "eval.vgg_fused_pct": "vgg.convs"}
 
 
 def _reader(name):
